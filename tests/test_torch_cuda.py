@@ -1,0 +1,76 @@
+"""The CUDA stencil kernel on the card: against its plain version, its
+launch count, and the main path never taking the plain version.
+
+Marked ``cuda``: these skip where torch.cuda.is_available() is false and
+run on a machine with an NVIDIA GPU and nvcc:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+(--noconftest: the suite's conftest configures JAX, which this file does
+not use.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pynama_tpu_torch.ops import stencil
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("xs,ws", [
+    ((21, 13, 64), (3, 3, 64, 64)),
+    ((17, 9, 64), (5, 5, 64, 64)),
+    ((33, 11, 64), (3, 3, 64, 128)),
+    ((13, 13, 128), (3, 3, 128, 192)),
+    ((40, 37, 8), (5, 5, 8, 8)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain(cuda, xs, ws, dtype, tol):
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    before = stencil.KERNEL.launches
+    y = stencil.conv_blocked(x, W)
+    torch.cuda.synchronize()
+    assert stencil.KERNEL.launches == before + 1
+    ref = stencil.conv_blocked_plain(x, W)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+
+
+def test_3d_raises_on_cuda(cuda):
+    x = torch.zeros((3, 3, 3, 4), device=cuda)
+    W = torch.zeros((3, 3, 3, 4, 4), device=cuda)
+    with pytest.raises(NotImplementedError):
+        stencil.conv_blocked(x, W)
+
+
+def test_cavity_on_cuda_never_takes_plain_version(cuda, monkeypatch):
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    def refuse(*args):
+        raise AssertionError("plain version reached with a CUDA tensor")
+
+    monkeypatch.setattr(stencil, "conv_blocked_plain", refuse)
+    cfg = {
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [8, 8]}},
+        "material-properties": {"rho": 1.0, "mu": 0.1},
+        "time-solver": {"end-time": 0.5},
+        "boundary-conditions": {"no-slip": {"up": [1.0, 0.0]}},
+        "kle-rtol": 1e-5,
+    }
+    before = stencil.KERNEL.launches
+    p = CavityProblem(cfg).setup()
+    vort, t, n = p.run(max_steps=2)
+    assert n == 2 and torch.isfinite(vort).all()
+    assert stencil.KERNEL.launches > before
