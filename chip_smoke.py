@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Drive pynama_tpu_torch on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each timed; any failure exits non-zero:
 
 1. the card: name and power limit (nvidia-smi), full-float32 matmuls;
-2. the build of the CUDA stencil kernel (csrc/stencil2d.cu) with nvcc;
-3. the kernel against its plain PyTorch version at every shape the
-   384x384 cavity gives it (float32, plus one float64 shape), with its
-   time, the plain version's, F.conv2d's (cuDNN, TF32 off: a yardstick
-   the port never calls) and the card's bound;
-4. the main path: CavityProblem(cfg).setup().run(max_steps=3) at 384x384
-   Q2 elements (1,182,722 velocity dofs), float32, multigrid-CG KLE,
-   with the kernel's launch count reset just before and read just after;
-5. a 16x16 cavity run twice on the card, through the kernel and with the
+2. the build of both CUDA stencil kernels (csrc/stencil2d.cu,
+   csrc/stencil3d.cu), one nvcc each, started together;
+3. 2D main path: CavityProblem(cfg).setup().run(max_steps=3) at 384x384
+   Q2 elements (1,182,722 velocity dofs), float32, multigrid-CG KLE, with
+   the kernels' launch counts reset just before and read just after;
+4. 3D main path: UniformFlowProblem(cfg).setup().run(max_steps=3) on
+   channel3d (configs/channel3d.yaml: 32x32x80 Q2 hexes, 2,040,675
+   velocity dofs) with bench.py's channel3d protocol, counts reset just
+   before and read just after;
+5. each kernel against its plain PyTorch version at every shape the wrapper
+   logged in phases 3 and 4 (float32, plus the busiest shape in float64),
+   with its time, the plain version's, F.conv2d's / F.conv3d's (cuDNN,
+   TF32 off: a yardstick the port never calls) and the card's bound;
+6. a 16x16 cavity run twice on the card, through the kernel and with the
    plain version forced, whose vorticities must agree;
-6. only with --profile: the 384x384 cavity again, its step 3 under
+7. the 3D Taylor-Green case (CustomFuncProblem) on 8x8x8 Q2 hexes, 3
+   steps, through the kernel and with the plain version forced: the
+   vorticities must agree and the velocity must match the exact field;
+8. only with --profile: each main path again, its step 3 under
    torch.profiler. The device busy share is the summed device time of
-   that step's kernels over the wall time of step 3 in phase 4, which ran
-   the same work (same stencil launches and CG iterations, checked)
-   without the profiler.
+   that step's kernels over the wall time of step 3 in phase 3 or 4,
+   which ran the same work (same stencil launches and CG iterations,
+   checked) without the profiler.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -68,20 +76,53 @@ def cavity_config(nelem):
     }
 
 
-# (label, B1, B2, Cin, Cout, F): the slice's applies at 384x384, ngl=3,
-# super-block factor 4 (97x97 fine blocks), and the parity-layout patch
-# apply of the lam_max power iterations (385x385 blocks, 8 channels)
-SHAPES = [
-    ("K / patch, fine", 97, 97, 128, 128, 3),
-    ("Rw, fine", 97, 97, 64, 128, 3),
-    ("Curl, fine", 97, 97, 128, 64, 3),
-    ("SrT, fine", 97, 97, 128, 192, 3),
-    ("DivSrT, fine", 97, 97, 192, 128, 3),
-    ("K / patch, MG level 1", 49, 49, 128, 128, 3),
-    ("K / patch, MG level 2", 25, 25, 128, 128, 3),
-    ("K / patch, MG level 3", 13, 13, 128, 128, 3),
-    ("patch, parity layout (lam_max setup)", 385, 385, 8, 8, 5),
-]
+def channel3d_config():
+    """configs/channel3d.yaml's geometry with bench.py's channel3d
+    protocol (bench.py:503-540): KLE rtol 1e-5, at most 4000 CG
+    iterations, a fixed dt of 1e-3 (dt0 = max-dt) and tolerances that
+    accept every attempt, so a step is 7 RHS evaluations. bench.py's
+    cross-step warm-start extrapolation is not ported; the stages warm
+    start from the previous stage. The explicit limit scales as h^2 and
+    lies near 0.4 at h = 1/8 with the same nu (tests/
+    test_torch_cavity_dt_limit.py), about 0.017 at h = 1/32 even with the
+    3D Laplacian's 3/2 factor: 17 times the 1e-3 used here."""
+    return {
+        "name": "channel3d-smoke",
+        "material-properties": {"rho": 1.0, "mu": 0.01},
+        "domain": {
+            "ngl": 3,
+            "box-mesh": {"nelem": [32, 32, 80], "lower": [0, 0, 0],
+                         "upper": [1, 1, 2.5]},
+        },
+        "time-solver": {"start-time": 0.0, "end-time": 100.0,
+                        "max-steps": 10000, "dt0": 1e-3, "max-dt": 1e-3,
+                        "atol": 1e12, "rtol": 1e12},
+        "kle-rtol": 1e-5,
+        "kle-maxiter": 4000,
+    }
+
+
+def taylor_green3d_config():
+    """configs/taylor-green2d-3d.yaml's material (rho 0.5, mu 0.01) on
+    8x8x8 Q2 hexes of the unit cube, the 3D Taylor-Green case, KLE rtol
+    1e-5 (float32). dt is held at 0.01 (every attempt accepted) so the
+    kernel and the plain run take the same steps; the explicit limit at
+    h = 1/8 and nu = 0.02 is near 0.2 (tests/
+    test_torch_cavity_dt_limit.py: 0.4 at nu = 0.01)."""
+    return {
+        "name": "taylor-green3d-smoke",
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {
+            "ngl": 3,
+            "box-mesh": {"nelem": [8, 8, 8], "lower": [0, 0, 0],
+                         "upper": [1, 1, 1]},
+        },
+        "time-solver": {"start-time": 0.0, "end-time": 1.0,
+                        "max-steps": 100, "dt0": 0.01, "max-dt": 0.01,
+                        "atol": 1e12, "rtol": 1e12},
+        "kle-rtol": 1e-5,
+        "kle-maxiter": 4000,
+    }
 
 
 def fail(msg):
@@ -102,156 +143,213 @@ def event_ms(torch, fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(torch, stencil, out):
+def _flops(xs, ws):
+    return 2.0 * math.prod(xs[:-1]) * math.prod(ws)
+
+
+def library_call(tnf, x, W):
+    """The same contraction as one cuDNN convolution (NCHW / NCDHW)."""
+    dim = W.dim() - 2
+    Q = (W.shape[0] - 1) // 2
+    perm_x = (dim,) + tuple(range(dim))
+    xn = x.permute(perm_x).unsqueeze(0).contiguous()
+    wn = W.permute((dim + 1, dim) + tuple(range(dim))).contiguous()
+    conv = tnf.conv2d if dim == 2 else tnf.conv3d
+    back = tuple(range(1, dim + 1)) + (0,)
+    return (lambda: conv(xn, wn, padding=Q)), back
+
+
+def phase_kernels(torch, stencil, kern, logged, out):
+    """The kernel against its plain version at every logged shape
+    (float32) and at the busiest one in float64."""
     import numpy as np
     import torch.nn.functional as tnf
 
     torch.backends.cudnn.allow_tf32 = False
+    shapes = sorted(logged, key=lambda s: -logged[s] * _flops(s[0], s[1]))
+    if not shapes:
+        fail(f"{kern.name}: no shapes were logged on the main path")
+    head = shapes[0]
+    cases = [(xs, ws, "float32") for xs, ws, dt in shapes
+             if dt == "float32"] + [(head[0], head[1], "float64")]
     rows = []
-    cases = [(s, torch.float32) for s in SHAPES] + [(SHAPES[0], torch.float64)]
-    for (label, B1, B2, cin, cout, F), dtype in cases:
-        rng = np.random.default_rng(B1 * 1000 + cin + cout + F)
-        x = torch.as_tensor(rng.normal(size=(B1, B2, cin)), dtype=dtype,
-                            device="cuda")
-        W = torch.as_tensor(rng.normal(size=(F, F, cin, cout)), dtype=dtype,
-                            device="cuda")
-        y = stencil.KERNEL(x, W)
+    for xs, ws, name in cases:
+        dtype = getattr(torch, name)
+        rng = np.random.default_rng(sum(xs) * 1000 + sum(ws))
+        x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device="cuda")
+        W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device="cuda")
+        y = kern(x, W)
         ref = stencil.conv_blocked_plain(x, W)
         torch.cuda.synchronize()
         abs_err = float((y - ref).abs().max())
         rel_err = abs_err / float(ref.abs().max())
-        name = str(dtype).replace("torch.", "")
         if not rel_err <= TOL[name]:
-            fail(f"kernel disagrees at {label} {name}: {rel_err:.3e}")
-        # library yardstick: the same contraction as an NCHW convolution
-        xn = x.permute(2, 0, 1).unsqueeze(0).contiguous()
-        wn = W.permute(3, 2, 0, 1).contiguous()
-        Q = (F - 1) // 2
-        lib = tnf.conv2d(xn, wn, padding=Q)[0].permute(1, 2, 0)
+            fail(f"{kern.name} disagrees at x {xs} W {ws} {name}: "
+                 f"{rel_err:.3e}")
+        lib_fn, back = library_call(tnf, x, W)
+        lib = lib_fn()[0].permute(back)
         lib_err = float((lib - ref).abs().max()) / float(ref.abs().max())
-        reps = 20 if B1 * B2 * cin * cout < 5e8 else 10
-        k_ms = event_ms(torch, lambda: stencil.KERNEL(x, W), reps)
+        flops = _flops(xs, ws)
+        reps = max(3, min(20, int(5e10 / flops)))
+        k_ms = event_ms(torch, lambda: kern(x, W), reps)
         p_ms = event_ms(torch, lambda: stencil.conv_blocked_plain(x, W), reps)
-        l_ms = event_ms(torch, lambda: tnf.conv2d(xn, wn, padding=Q), reps)
+        l_ms = event_ms(torch, lib_fn, reps)
         size = x.element_size()
-        flops = 2.0 * B1 * B2 * F * F * cin * cout
-        nbytes = size * (B1 * B2 * cin + F * F * cin * cout + B1 * B2 * cout)
+        nbytes = size * (math.prod(xs) + math.prod(ws)
+                         + math.prod(xs[:-1]) * ws[-1])
         t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
         row = {
-            "shape": label, "dtype": name, "x": [B1, B2, cin],
-            "W": [F, F, cin, cout], "max_abs_err": abs_err,
-            "max_rel_err": rel_err, "library_rel_err": lib_err,
-            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "dtype": name, "x": list(xs), "W": list(ws),
+            "main_path_launches": logged.get((xs, ws, name), 0),
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "library_rel_err": lib_err, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
         rows.append(row)
-        print(f"  {label:40s} {name}  rel err {rel_err:.2e}  kernel "
-              f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  conv2d {l_ms:.4f} ms  "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-              flush=True)
-    out["kernel_shapes"] = rows
+        print(f"  x {str(xs):22s} W {str(ws):24s} {name} x{row['main_path_launches']:<6d} "
+              f"rel err {rel_err:.2e}  kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms  cuDNN {l_ms:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    out[f"{kern.name}_shapes"] = rows
     return rows
 
 
-def phase_slice(torch, stencil, CavityProblem, out):
-    cfg = cavity_config(384)
+def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
+    """setup() + run(max_steps=3) through the kernels, the launch counts
+    set to 0 just before and read just after."""
     marks = []
 
     def callback(n, t, dt, vort, vel):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), stencil.KERNEL.launches,
-                      len(p.cg_iters)))
+        marks.append((time.perf_counter(), kern.launches, len(p.cg_iters)))
 
-    stencil.KERNEL.launches = 0
+    for k in stencil.KERNELS.values():
+        k.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = CavityProblem(cfg).setup()
+    p = make_problem()
+    p.setup()
     torch.cuda.synchronize()
     t_setup = time.perf_counter()
-    setup_launches = stencil.KERNEL.launches
+    setup_launches = kern.launches
     vort, t, n = p.run(max_steps=3, callback=callback)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = stencil.KERNEL.launches
+    launches = {k.name: k.launches for k in stencil.KERNELS.values()}
+    logged = dict(kern.shapes)
 
-    dofs = p.mesh.n_nodes * 2
+    dofs = p.mesh.n_nodes * p.dim
     norm = float(torch.linalg.norm(vort))
     if n != 3 or len(marks) != 3:
-        fail(f"expected 3 accepted steps, got {n}")
+        fail(f"{key}: expected 3 accepted steps, got {n}")
     if not math.isfinite(norm) or not bool(torch.isfinite(vort).all()):
-        fail("final vorticity is not finite")
+        fail(f"{key}: final vorticity is not finite")
     step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
     step_launches = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
     step_iters = [p.cg_iters[a[2]:b[2]] for a, b in zip(marks, marks[1:])]
-    if not all(s > 0 for s in step_launches) or launches <= 0:
-        fail("the main path launched no stencil kernel")
+    if not all(s > 0 for s in step_launches) or launches[kern.name] <= 0:
+        fail(f"{key}: the main path launched no {kern.name} kernel")
     iters = p.cg_iters
     res = {
-        "nelem": 384, "ngl": 3, "velocity_dofs": dofs, "dtype": "float32",
-        "steps": n, "t": t, "setup_s": t_setup - t0,
+        "nelem": list(p.nelem), "ngl": p.ngl, "velocity_dofs": dofs,
+        "dtype": "float32", "steps": n, "t": t, "setup_s": t_setup - t0,
         "first_step_incl_initial_rhs_ms": 1e3 * (marks[0][0] - t_setup),
         "ms_per_step": sum(step_ms) / len(step_ms), "step_ms": step_ms,
         "run_s_incl_final_solve": t_end - t_setup,
         "kle_solves": len(iters), "cg_iters_per_solve": sum(iters) / len(iters),
-        "cg_iters": iters, "stencil_launches": launches,
+        "cg_iters": iters, "stencil_launches": launches[kern.name],
+        "launches_by_kernel": launches,
         "stencil_launches_setup": setup_launches,
         "stencil_launches_per_step": step_launches,
         "cg_iters_per_step": step_iters,
+        "logged_shapes": [[list(s[0]), list(s[1]), s[2], c]
+                          for s, c in logged.items()],
         "vort_norm": norm, "mg_ratios": p.mg.ratios,
         "lam_max": p.mg.lam_max,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    out["slice"] = res
+    if extra is not None:
+        res.update(extra(p, vort))
+    out[key] = res
     print(f"  {dofs} velocity dofs, setup {res['setup_s']:.2f} s, "
           f"{res['ms_per_step']:.1f} ms/step (steps 2-3), first step incl. "
-          f"initial RHS {res['first_step_incl_initial_rhs_ms']:.1f} ms", flush=True)
+          f"initial RHS {res['first_step_incl_initial_rhs_ms']:.1f} ms, "
+          f"peak memory {res['peak_mem_gib']:.2f} GiB", flush=True)
     print(f"  {len(iters)} KLE solves, {res['cg_iters_per_solve']:.2f} CG "
-          f"iterations per solve (max {max(iters)}), stencil launches per "
-          f"step {step_launches}, total {launches}; |vort| = {norm:.6e}",
-          flush=True)
-    return res
+          f"iterations per solve (max {max(iters)}), {kern.name} launches "
+          f"per step {step_launches}, total {launches}; |vort| = "
+          f"{norm:.6e}; {len(logged)} shapes logged", flush=True)
+    return res, logged
 
 
-def phase_plain_compare(torch, stencil, CavityProblem, out):
-    cfg = cavity_config(16)
+def channel_extra(torch):
+    def extra(p, vort):
+        one = torch.tensor([1.0, 0.0, 0.0], dtype=p.vel.dtype,
+                           device=p.vel.device)
+        dev = float((p.vel.reshape(-1, 3) - one).abs().max())
+        print(f"  max |u - (1,0,0)| = {dev:.3e}, max |vort| = "
+              f"{float(vort.abs().max()):.3e}", flush=True)
+        if not math.isfinite(dev):
+            fail("channel3d: final velocity is not finite")
+        return {"max_abs_u_minus_uniform": dev,
+                "max_abs_vort": float(vort.abs().max())}
+    return extra
+
+
+def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
+                        exact_limit=None):
+    """One small run through the kernel and one with the plain version
+    forced; the vorticities must agree (and, with exact_limit, the
+    velocity must match the problem's exact field)."""
     runs = {}
     for mode in ("kernel", "plain"):
-        before = stencil.KERNEL.launches
+        before = kern.launches
         saved = stencil.conv_blocked
         if mode == "plain":
             stencil.conv_blocked = stencil.conv_blocked_plain
         try:
-            p = CavityProblem(cfg).setup()
+            p = make_problem().setup()
             vort, t, n = p.run(max_steps=3)
         finally:
             stencil.conv_blocked = saved
-        runs[mode] = (vort, t, n, stencil.KERNEL.launches - before)
-    (vk, tk, nk, lk), (vp, tp, np_, lp) = runs["kernel"], runs["plain"]
+        runs[mode] = (p, vort, t, n, kern.launches - before)
+    (pk, vk, tk, nk, lk), (_, vp, tp, np_, lp) = runs["kernel"], runs["plain"]
     rel = float(torch.linalg.norm(vk - vp) / torch.linalg.norm(vp))
-    out["plain_compare"] = {"nelem": 16, "steps": [nk, np_], "t": [tk, tp],
-                            "vort_rel_diff": rel,
-                            "launches": [lk, lp]}
-    print(f"  16x16: steps {nk}/{np_}, vorticity rel diff {rel:.3e} "
-          f"(limit 1e-4), launches kernel {lk} / plain {lp}", flush=True)
-    if nk != np_ or lk <= 0 or lp != 0:
-        fail("kernel and plain 16x16 runs differ in steps or launches")
+    res = {"nelem": list(pk.nelem), "steps": [nk, np_], "t": [tk, tp],
+           "vort_rel_diff": rel, "launches": [lk, lp]}
+    msg = (f"  {'x'.join(map(str, pk.nelem))}: steps {nk}/{np_}, t {tk:.4g}, "
+           f"vorticity rel diff {rel:.3e} (limit 1e-4), launches kernel "
+           f"{lk} / plain {lp}")
+    if exact_limit is not None:
+        vel_e, _ = pk.exact_fields(tk)
+        err = float(torch.linalg.norm(pk.vel - vel_e.reshape(-1))
+                    / torch.linalg.norm(vel_e))
+        res["vel_rel_err_vs_exact"] = err
+        msg += f"; velocity rel err vs exact {err:.3e} (limit {exact_limit})"
+    out[key] = res
+    print(msg, flush=True)
+    if nk != np_ or tk != tp or lk <= 0 or lp != 0:
+        fail(f"{key}: kernel and plain runs differ in steps or launches")
     if not rel <= 1e-4:
-        fail(f"16x16 vorticity kernel vs plain: {rel:.3e} > 1e-4")
+        fail(f"{key}: vorticity kernel vs plain: {rel:.3e} > 1e-4")
+    if exact_limit is not None and not res["vel_rel_err_vs_exact"] < \
+            exact_limit:
+        fail(f"{key}: velocity error vs exact {res['vel_rel_err_vs_exact']}")
 
 
-def phase_profile(torch, stencil, CavityProblem, sl, out):
+def phase_profile(torch, kern, make_problem, sl, key, out):
     from torch.profiler import ProfilerActivity, profile
 
-    p = CavityProblem(cavity_config(384)).setup()
+    p = make_problem().setup()
     prof = profile(activities=[ProfilerActivity.CUDA])
     marks = []
 
     def callback(n, t, dt, vort, vel):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), stencil.KERNEL.launches,
-                      len(p.cg_iters)))
+        marks.append((time.perf_counter(), kern.launches, len(p.cg_iters)))
         if n == 2:
             prof.start()
         elif n == 3:
@@ -263,7 +361,7 @@ def phase_profile(torch, stencil, CavityProblem, sl, out):
     if launches != sl["stencil_launches_per_step"][1] or \
             iters != sl["cg_iters_per_step"][1]:
         fail(f"profiled step 3 ({launches} launches, CG {iters}) is not the "
-             f"work of phase 4's step 3 "
+             f"work of the main path's step 3 "
              f"({sl['stencil_launches_per_step'][1]}, "
              f"{sl['cg_iters_per_step'][1]})")
     rows = []
@@ -278,29 +376,52 @@ def phase_profile(torch, stencil, CavityProblem, sl, out):
     if dev_ms <= 0:
         fail("the profiler recorded no device time")
     wall_ms = sl["step_ms"][1]
-    stencil_ms = sum(r["device_ms"] for r in rows if "stencil2d" in r["name"])
+    stencil_ms = sum(r["device_ms"] for r in rows if kern.name in r["name"])
     res = {
         "step": 3, "step_wall_ms": wall_ms,
         "profiled_step_wall_ms": 1e3 * (t3 - marks[1][0]),
         "device_kernel_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
-        "stencil2d_device_ms": stencil_ms, "stencil_launches": launches,
+        f"{kern.name}_device_ms": stencil_ms, "stencil_launches": launches,
         "cg_iters": iters, "top": rows[:25],
     }
-    out["profile"] = res
+    out[key] = res
     print(f"  step 3: {wall_ms:.1f} ms wall without the profiler "
           f"({res['profiled_step_wall_ms']:.1f} ms with it), kernels "
           f"{dev_ms:.1f} ms, device busy {100 * dev_ms / wall_ms:.1f}%; "
-          f"stencil2d {stencil_ms:.1f} ms over {launches} launches",
+          f"{kern.name} {stencil_ms:.1f} ms over {launches} launches",
           flush=True)
     for r in rows[:12]:
         print(f"  {r['device_ms']:9.2f} ms {r['calls']:7d}x  {r['name'][:80]}",
               flush=True)
 
 
+def kernel_entry(kern, rows, launches, replaces):
+    head = next(r for r in rows if r["dtype"] == "float32")
+    return {
+        "name": kern.name,
+        "route": "cuda",
+        "source": f"pynama_tpu_torch/csrc/{kern.name}.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "float32"),
+        "ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "at": f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
+        "shapes": [{k: r[k] for k in (
+            "dtype", "x", "W", "main_path_launches", "max_rel_err",
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+            for r in rows],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 6: step 3 of the 384x384 cavity under "
+                    help="add phase 8: step 3 of each main path under "
                          "torch.profiler")
     args = ap.parse_args()
     t_all = time.perf_counter()
@@ -311,11 +432,21 @@ def main():
         return 1
     # the port first: without it (a lone copy of this script) exit before
     # printing anything
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
     from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.cases.uniform import UniformFlowProblem
     from pynama_tpu_torch.ops import stencil
 
+    k2, k3 = stencil.KERNEL, stencil.KERNEL3D
     phase_s = {}
     out = {}
+
+    def phase(key, title, fn):
+        t0 = time.perf_counter()
+        print(title, flush=True)
+        res = fn()
+        phase_s[key] = time.perf_counter() - t0
+        return res
 
     t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -330,57 +461,62 @@ def main():
     phase_s["card"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    stencil.KERNEL.build()
+    stencil.build_kernels()
     phase_s["build"] = time.perf_counter() - t0
-    log = [ln for ln in stencil.KERNEL.build_log.splitlines()
-           if "registers" in ln or "spill" in ln]
-    print(f"[2] built {stencil.KERNEL.source.name} in "
-          f"{stencil.KERNEL.build_seconds:.1f} s", flush=True)
-    for ln in log:
-        print("    " + ln.strip(), flush=True)
+    print(f"[2] built {k2.source.name} in {k2.build_seconds:.1f} s and "
+          f"{k3.source.name} in {k3.build_seconds:.1f} s, in parallel",
+          flush=True)
+    for k in (k2, k3):
+        for ln in k.build_log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"    {k.name}: " + ln.strip(), flush=True)
 
-    t0 = time.perf_counter()
-    print("[3] kernel vs plain version", flush=True)
-    rows = phase_kernels(torch, stencil, out)
-    phase_s["kernel_check"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    print("[4] main path: 384x384 cavity, 3 steps", flush=True)
-    sl = phase_slice(torch, stencil, CavityProblem, out)
-    phase_s["slice"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    print("[5] 16x16 cavity: kernel vs plain version on the card", flush=True)
-    phase_plain_compare(torch, stencil, CavityProblem, out)
-    phase_s["plain_compare"] = time.perf_counter() - t0
-
+    sl2, logged2 = phase(
+        "cavity", "[3] 2D main path: 384x384 cavity, 3 steps",
+        lambda: phase_main(torch, stencil, k2,
+                           lambda: CavityProblem(cavity_config(384)),
+                           "cavity", out))
+    sl3, logged3 = phase(
+        "channel3d", "[4] 3D main path: channel3d 32x32x80, 3 steps",
+        lambda: phase_main(torch, stencil, k3,
+                           lambda: UniformFlowProblem(channel3d_config()),
+                           "channel3d", out, extra=channel_extra(torch)))
+    rows2 = phase("kernel_check_2d",
+                  "[5a] stencil2d vs plain version at the cavity's shapes",
+                  lambda: phase_kernels(torch, stencil, k2, logged2, out))
+    rows3 = phase("kernel_check_3d",
+                  "[5b] stencil3d vs plain version at channel3d's shapes",
+                  lambda: phase_kernels(torch, stencil, k3, logged3, out))
+    phase("plain_compare_2d",
+          "[6] 16x16 cavity: kernel vs plain version on the card",
+          lambda: phase_plain_compare(
+              torch, stencil, k2, lambda: CavityProblem(cavity_config(16)),
+              "plain_compare_2d", out))
+    phase("plain_compare_3d",
+          "[7] 8x8x8 3D Taylor-Green: kernel vs plain version on the card",
+          lambda: phase_plain_compare(
+              torch, stencil, k3,
+              lambda: CustomFuncProblem(taylor_green3d_config(),
+                                        case="taylor-green"),
+              "plain_compare_3d", out, exact_limit=0.15))
     if args.profile:
-        t0 = time.perf_counter()
-        print("[6] profile: step 3 of the 384x384 cavity", flush=True)
-        phase_profile(torch, stencil, CavityProblem, sl, out)
-        phase_s["profile"] = time.perf_counter() - t0
+        phase("profile_2d", "[8a] profile: step 3 of the 384x384 cavity",
+              lambda: phase_profile(
+                  torch, k2, lambda: CavityProblem(cavity_config(384)), sl2,
+                  "profile_2d", out))
+        phase("profile_3d", "[8b] profile: step 3 of channel3d",
+              lambda: phase_profile(
+                  torch, k3, lambda: UniformFlowProblem(channel3d_config()),
+                  sl3, "profile_3d", out))
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
-    head = rows[0]
-    kernels = {"kernels": [{
-        "name": "stencil2d",
-        "route": "cuda",
-        "source": "pynama_tpu_torch/csrc/stencil2d.cu",
-        "replaces": "pynama_tpu/ops/pallas_stencil.py:173",
-        "launches": sl["stencil_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
-        "ms": head["kernel_ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "at": "x (97, 97, 128) float32, W (3, 3, 128, 128)",
-        "shapes": [{k: r[k] for k in (
-            "shape", "dtype", "x", "W", "max_rel_err", "kernel_ms",
-            "plain_ms", "library_ms", "bound_ms")} for r in rows],
-    }]}
+    kernels = {"kernels": [
+        kernel_entry(k2, rows2, sl2["stencil_launches"],
+                     "pynama_tpu/ops/pallas_stencil.py:173"),
+        kernel_entry(k3, rows3, sl3["stencil_launches"],
+                     "pynama_tpu/ops/pallas_stencil.py:218"),
+    ]}
     out.update(phase_s=phase_s, device=torch.cuda.get_device_name(0),
                nvidia_smi=smi)
     print(json.dumps({"results": out}), flush=True)

@@ -1,4 +1,7 @@
-from pynama_tpu_torch.cases.base import BaseProblem
+from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+from pynama_tpu_torch.cases.base import BaseProblem, FreeSlipProblem
 from pynama_tpu_torch.cases.cavity import CavityProblem, NoSlipProblem
+from pynama_tpu_torch.cases.uniform import UniformFlowProblem
 
-__all__ = ["BaseProblem", "NoSlipProblem", "CavityProblem"]
+__all__ = ["BaseProblem", "FreeSlipProblem", "NoSlipProblem",
+           "CavityProblem", "UniformFlowProblem", "CustomFuncProblem"]

@@ -1,10 +1,12 @@
 """Problem orchestration: setup -> KLE solve -> transient run.
 
-Port of pynama_tpu/cases/base.py for uniform 2D box meshes. The config
-schema is the reference's YAML: name, material-properties {rho, mu},
-domain {ngl, box-mesh {nelem, lower, upper}}, time-solver {start-time,
-end-time, max-steps, dt0, atol, rtol, max-dt}, boundary-conditions,
-kle-rtol, kle-maxiter, multigrid.
+Port of pynama_tpu/cases/base.py for uniform 2D and 3D box meshes. The
+config schema is the reference's YAML: name, material-properties {rho,
+mu}, domain {ngl, box-mesh {nelem, lower, upper}}, time-solver
+{start-time, end-time, max-steps, dt0, atol, rtol, max-dt},
+boundary-conditions, kle-rtol, kle-maxiter, multigrid. The
+mixed-precision refinement (kle-refine), warm-start extrapolation and
+GMRES raise NotImplementedError here, for every problem.
 
 Solver state (vorticity, velocity, CG and multigrid internals) lives in
 the blocked layout of ops/conv.py; grid and flat layouts appear only at
@@ -35,7 +37,7 @@ _NOT_PORTED = {
 
 
 class BaseProblem:
-    """Shared setup/orchestration (uniform 2D box meshes).
+    """Shared setup/orchestration (uniform 2D and 3D box meshes).
 
     Subclasses build their numpy BC arrays in ``setup_bc`` (as
     ``self._bc_arrays``, grid layout) and name the free-dof masks that
@@ -64,14 +66,11 @@ class BaseProblem:
         box = domain.get("box-mesh", domain)
         self.nelem = tuple(box["nelem"])
         self.dim = len(self.nelem)
-        if self.dim != 2:
-            raise NotImplementedError("3D box meshes wait for the 3D stencil "
-                                      "kernel (ROADMAP.md queue 2)")
         self.lower = tuple(_eval_seq(box.get("lower", (0,) * self.dim)))
         self.upper = tuple(_eval_seq(box.get("upper", (1,) * self.dim)))
         self.ngl = int(domain["ngl"])
-        self.dim_w = 1
-        self.dim_s = 3
+        self.dim_w = 1 if self.dim == 2 else 3
+        self.dim_s = 3 if self.dim == 2 else 6
 
         mat = config.get("material-properties", {"rho": 1.0, "mu": 1.0})
         self.rho = float(mat["rho"])
@@ -106,6 +105,14 @@ class BaseProblem:
     def setup_bc(self):
         """Build numpy free-dof masks (grid layout) and BC values."""
         raise NotImplementedError
+
+    def vel_bc(self, t):
+        """Velocity on the node grid; only constrained dofs are read."""
+        raise NotImplementedError
+
+    def vort_bc(self, t, vort):
+        """Clamp boundary vorticity (blocked layout); none by default."""
+        return vort
 
     def initial_vorticity(self):
         return torch.zeros(self._gshape(self.dim_w), dtype=self.dtype,
@@ -224,6 +231,10 @@ class BaseProblem:
                 frees_boundary=self._frees_boundary[name])
 
     # -- solves ----------------------------------------------------------
+    def _solver_bc(self, t):
+        """vel_bc in the blocked layout."""
+        return self._blk(self.vel_bc(t))
+
     def _solve(self, name, vort, u_bc, x0, rtol, maxiter, restarts):
         """One masked KLE solve with the mask ``name`` (blocked layout)."""
         res = self.system.solve(
@@ -246,6 +257,7 @@ class BaseProblem:
             raise ValueError(f"transport_rhs takes blocked vorticity "
                              f"{self._bshape(self.dim_w)}, got "
                              f"{tuple(vort.shape)}")
+        vort = self.vort_bc(t, vort)
         vel, aux = self._kle_solve_aux(t, vort, vel_ws)
         f = ns_rhs(self.operators, vel, self.mu, self.rho, self.dim)
         return f, aux
@@ -285,6 +297,50 @@ class BaseProblem:
         self.vort = self._unblk(vort).reshape(-1)
         self.vel = self._unblk(self.solve_kle(t, vort)).reshape(-1)
         return self.vort, float(t), n
+
+
+class FreeSlipProblem(BaseProblem):
+    """Every boundary node fully Dirichlet-constrained: one mask, one KLE
+    solve per evaluation. Port of the reference's FreeSlipProblem."""
+
+    _mask_names = ("free_mask",)
+
+    def setup_bc(self):
+        """The free-dof mask and the boundary-vorticity mask, numpy grid
+        layout; subclasses add their BC values."""
+        mesh = self.mesh
+        mask = np.ones(mesh.n_nodes * self.dim)
+        mask[mesh.node_dofs(mesh.boundary_nodes, self.dim)] = 0.0
+        wmask = np.zeros(mesh.n_nodes * self.dim_w)
+        wmask[mesh.node_dofs(mesh.boundary_nodes, self.dim_w)] = 1.0
+        self._bc_arrays = {
+            "free_mask": mask.reshape(self._gshape(self.dim)),
+            "bc_vort_mask": wmask.reshape(self._gshape(self.dim_w)),
+        }
+
+    def solve_kle(self, t, vort, x0=None, rtol=None, maxiter=None,
+                  restarts=1):
+        """Velocity of a vorticity field (blocked, grid or flat layout;
+        the result has the same layout)."""
+        vort, x0, restore = self._kle_layout(vort, x0)
+        res = self._solve(
+            "free_mask", vort, self._solver_bc(t), x0,
+            rtol if rtol is not None else self.kle_rtol,
+            maxiter if maxiter is not None else self.kle_maxiter, restarts)
+        return restore(res.x)
+
+    def kle_error(self, viscous_times, exact_fields):
+        """||u - u_exact||_2 of KLE solves at t = tau^2 / (4 nu);
+        exact_fields(t) -> (vel (N, dim), vort (N, dim_w)) tensors."""
+        errors = []
+        for tau in viscous_times:
+            t = tau**2 / (4.0 * self.nu)
+            vel_e, vort_e = exact_fields(t)
+            u = self.solve_kle(t, vort_e.reshape(self._gshape(self.dim_w)),
+                               rtol=1e-13, maxiter=30000, restarts=2)
+            errors.append(float(torch.linalg.norm(
+                u.reshape(-1) - vel_e.reshape(-1))))
+        return errors
 
 
 _EVAL_NAMES = {"__builtins__": {}}

@@ -257,11 +257,14 @@ def conv_taps(xb, W):
     B = xb.shape[-dim - 1:-1]
     g = tnf.pad(xb, (0, 0) + (Q, Q) * dim)
     out = None
-    for q in np.ndindex(*(F,) * dim):
+    for q in product(range(F), repeat=dim):
         sl = (Ellipsis,) + tuple(
             slice(q[i], q[i] + B[i]) for i in range(dim)) + (slice(None),)
         v = torch.matmul(g[sl], W[q])
-        out = v if out is None else out + v
+        if out is None:
+            out = v
+        else:
+            out += v
     return out
 
 

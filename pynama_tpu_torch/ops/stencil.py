@@ -1,40 +1,44 @@
-"""The blocked stencil contraction: CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""The blocked stencil contraction: CUDA kernels, their wrappers and the
+plain PyTorch version.
 
-    y[b1, b2, :] = sum_{q1, q2 < F} x[b1 + q1 - Q, b2 + q2 - Q, :] @ W[q1, q2]
+    y[b, :] = sum_{q < F in every axis} x[b + q - Q, :] @ W[q]
 
-zero-extended, Q = (F - 1) / 2, on a blocked tensor (B1, B2, Cin) with a
-kernel W (F, F, Cin, Cout). Every operator apply of the solver goes
-through ``conv_blocked``.
+zero-extended, Q = (F - 1) / 2, on a blocked tensor (B1, ..., Bdim, Cin)
+with a kernel W (F, ..., F, Cin, Cout), dim 2 or 3. Every operator apply
+of the solver goes through ``conv_blocked``.
 
-Replaces the TPU kernel ``pynama_tpu/ops/pallas_stencil.py``
-``_kernel_xc`` / ``conv_blocked_pallas`` (and its "flat" variant
-``_kernel``, which computes the same function) with the hand-written
-Hopper kernel ``csrc/stencil2d.cu``. Bound on an H100 SXM at 700 W: the
-fine-level K apply (97 x 97 blocks, 128 -> 128, F = 3) is 2.78 GFLOP and
-10.2 MB, so arithmetic bounds it at about 41 us (67 TFLOP/s float32
-without tensor cores) against about 3 us for the bytes (3.35 TB/s).
+Replaces the TPU kernels of ``pynama_tpu/ops/pallas_stencil.py``:
+``_kernel_xc`` (2D, called from ``conv_blocked_pallas``) with the
+hand-written Hopper kernel ``csrc/stencil2d.cu``, and ``_kernel3d_xc``
+(3D, called from ``_conv3d_pallas``) with ``csrc/stencil3d.cu``; their
+"flat" variants ``_kernel`` and ``_kernel3d`` compute the same functions.
+Bound on an H100 SXM at 700 W, by arithmetic (67 TFLOP/s float32 without
+tensor cores) at every main-path shape: the 2D fine K apply (97 x 97
+blocks, 128 -> 128, F = 3) is 2.78 GFLOP, about 41 us; the 3D fine K
+apply of channel3d (41 x 17 x 17 blocks, 192 -> 192, F = 3) is 23.6
+GFLOP, about 0.35 ms, against about 7 us for its 22 MB at 3.35 TB/s.
 
 Dispatch: a CPU tensor runs ``conv_blocked_plain``; a CUDA tensor
-launches the kernel or raises. The kernel is built with ``nvcc`` at its
-first use into ``pynama_tpu_torch/_build/`` (listed in .gitignore) and
-loaded with ctypes; building needs ``nvcc`` and raises without it.
+launches the kernel of its dim or raises. Each kernel is built with
+``nvcc`` at its first use into ``pynama_tpu_torch/_build/`` (listed in
+.gitignore) and loaded with ctypes; building needs ``nvcc`` and raises
+without it. ``build_kernels`` builds both at once, one ``nvcc`` each.
 """
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
-import numpy as np
 import torch
 import torch.nn.functional as tnf
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "stencil2d.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,10 +46,10 @@ FOOTPRINTS = (3, 5)
 
 
 def conv_blocked_plain(xb, W):
-    """Plain PyTorch version of the kernel: F^dim shifted matmuls.
+    """Plain PyTorch version of the kernels: F^dim shifted matmuls.
 
-    Any dim (the 3D contraction runs here on the CPU); the reference for
-    the kernel on the card and the path every CPU tensor takes.
+    Any dim; the reference for the kernels on the card and the path
+    every CPU tensor takes.
     """
     dim = W.dim() - 2
     F = W.shape[0]
@@ -53,27 +57,32 @@ def conv_blocked_plain(xb, W):
     B = xb.shape[-dim - 1:-1]
     g = tnf.pad(xb, (0, 0) + (Q, Q) * dim)
     out = None
-    for q in np.ndindex(*(F,) * dim):
+    for q in itertools.product(range(F), repeat=dim):
         sl = (Ellipsis,) + tuple(
             slice(q[i], q[i] + B[i]) for i in range(dim)) + (slice(None),)
         v = torch.matmul(g[sl], W[q])
-        out = v if out is None else out + v
+        if out is None:
+            out = v
+        else:
+            out += v
     return out
 
 
 def check_args(xb, W):
-    """Raise unless the 2D kernel takes (xb, W) as they are."""
-    if W.dim() == 5:
-        raise NotImplementedError(
-            "the 3D stencil kernel is not ported yet (ROADMAP.md queue 2)")
-    if xb.dim() != 3 or W.dim() != 4:
-        raise ValueError(f"expected x (B1, B2, Cin) and W (F, F, Cin, Cout), "
-                         f"got {tuple(xb.shape)} and {tuple(W.shape)}")
+    """Raise unless the kernel of W's dim takes (xb, W) as they are:
+    x (B1, .., Bdim, Cin) and W (F, .., F, Cin, Cout) with dim 2 or 3."""
+    dim = W.dim() - 2
+    if dim not in (2, 3) or xb.dim() != dim + 1:
+        raise ValueError(f"expected x (B1, .., Bdim, Cin) and W (F, .., F, "
+                         f"Cin, Cout) with dim 2 or 3, got {tuple(xb.shape)} "
+                         f"and {tuple(W.shape)}")
     F = W.shape[0]
-    if F not in FOOTPRINTS or W.shape[1] != F:
-        raise ValueError(f"footprint {tuple(W.shape[:2])} not in {FOOTPRINTS}")
-    if W.shape[2] != xb.shape[2]:
-        raise ValueError(f"channels: x has {xb.shape[2]}, W takes {W.shape[2]}")
+    if F not in FOOTPRINTS or any(W.shape[a] != F for a in range(dim)):
+        raise ValueError(f"footprint {tuple(W.shape[:dim])} not in "
+                         f"{FOOTPRINTS}")
+    if W.shape[-2] != xb.shape[-1]:
+        raise ValueError(f"channels: x has {xb.shape[-1]}, W takes "
+                         f"{W.shape[-2]}")
     if xb.dtype != W.dtype or xb.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dtypes {xb.dtype}, {W.dtype}: need one of "
                         "float32/float64 for both")
@@ -83,86 +92,130 @@ def check_args(xb, W):
         raise ValueError("x and W must be contiguous")
 
 
-class Stencil2D:
-    """The CUDA kernel of csrc/stencil2d.cu, built at first use.
+class CudaStencil:
+    """The CUDA kernel of csrc/stencil{dim}d.cu, built at first use.
 
-    ``launches`` counts the kernel launches, and nothing else.
+    ``launches`` counts the kernel launches, and nothing else; ``shapes``
+    counts them by (x shape, W shape, dtype).
     """
 
-    def __init__(self, source=SOURCE, build_dir=BUILD_DIR):
-        self.source = Path(source)
-        self.build_dir = Path(build_dir)
+    def __init__(self, dim):
+        self.dim = dim
+        self.name = f"stencil{dim}d"
+        self.source = _PKG / "csrc" / f"{self.name}.cu"
         self.launches = 0
+        self.shapes = Counter()
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
 
-    def build(self):
-        """Compile (if not built yet) and load the shared library."""
-        if self._lib is not None:
-            return self._lib
+    def reset_counts(self):
+        self.launches = 0
+        self.shapes.clear()
+
+    def _so(self):
         src = self.source.read_bytes()
         tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = self.build_dir / f"libstencil2d-{tag[:16]}.so"
-        t0 = time.perf_counter()
-        if not so.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
-                                   "to build csrc/stencil2d.cu")
-            self.build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
+        return BUILD_DIR / f"lib{self.name}-{tag[:16]}.so"
+
+    def _start_build(self):
+        """Start nvcc unless the library is built; (so, process or None)."""
+        so = self._so()
+        if so.exists():
+            return so, None
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError(f"nvcc not found: the CUDA toolkit is needed "
+                               f"to build {self.source}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return so, (proc, tmp)
+
+    def _finish_build(self, so, started, t0):
+        if started is not None:
+            proc, tmp = started
+            self.build_log = proc.communicate()[0]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source}:\n"
                                    f"{self.build_log}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        for name in ("stencil2d_f32", "stencil2d_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{self.name}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+                self.dim + 3) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         self.build_seconds = time.perf_counter() - t0
         self._lib = lib
         return lib
 
+    def build(self):
+        """Compile (if not built yet) and load the shared library."""
+        if self._lib is None:
+            build_kernels([self])
+        return self._lib
+
     def __call__(self, xb, W):
         check_args(xb, W)
+        if W.dim() - 2 != self.dim:
+            raise ValueError(f"{self.name} takes {self.dim}D kernels, got W "
+                             f"{tuple(W.shape)}")
         if xb.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                              f"{xb.device}")
         lib = self.build()
-        fn = lib.stencil2d_f32 if xb.dtype == torch.float32 else \
-            lib.stencil2d_f64
-        B1, B2, c_in = xb.shape
-        F, c_out = W.shape[0], W.shape[3]
-        y = torch.empty((B1, B2, c_out), dtype=xb.dtype, device=xb.device)
+        fn = getattr(lib, f"{self.name}_"
+                     + ("f32" if xb.dtype == torch.float32 else "f64"))
+        F, c_in, c_out = W.shape[0], W.shape[-2], W.shape[-1]
+        y = torch.empty(tuple(xb.shape[:-1]) + (c_out,), dtype=xb.dtype,
+                        device=xb.device)
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
-            err = fn(xb.data_ptr(), W.data_ptr(), y.data_ptr(), B1, B2, c_in,
-                     c_out, F, stream)
+            err = fn(xb.data_ptr(), W.data_ptr(), y.data_ptr(),
+                     *xb.shape[:-1], c_in, c_out, F, stream)
         if err != 0:
-            raise RuntimeError(f"stencil2d launch failed: CUDA error {err} "
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
                                f"(x {tuple(xb.shape)}, W {tuple(W.shape)})")
         self.launches += 1
+        self.shapes[(tuple(xb.shape), tuple(W.shape),
+                     str(xb.dtype).replace("torch.", ""))] += 1
         return y
 
 
-KERNEL = Stencil2D()
+def build_kernels(kernels=None):
+    """Build and load the kernels not built yet, one nvcc each, all
+    started together."""
+    kernels = [k for k in (kernels or KERNELS.values()) if k._lib is None]
+    t0 = time.perf_counter()
+    started = []
+    try:
+        for k in kernels:
+            started.append((k, *k._start_build()))
+        for k, so, proc in started:
+            k._finish_build(so, proc, t0)
+    finally:  # a failed build leaves no other nvcc running
+        for _, _, proc in started:
+            if proc is not None and proc[0].poll() is None:
+                proc[0].kill()
+                proc[0].wait()
+
+
+KERNEL = CudaStencil(2)
+KERNEL3D = CudaStencil(3)
+KERNELS = {2: KERNEL, 3: KERNEL3D}
 
 
 def conv_blocked(xb, W):
     """Stencil contraction on a blocked tensor (B..., Cin) -> (B..., Cout).
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    (2D; 3D raises NotImplementedError), never the plain version.
+    of W's dim, never the plain version. Both hold the caller to the
+    kernels' contract (check_args).
     """
-    if xb.device.type == "cpu" and W.device.type == "cpu":
-        if W.dim() == 4:
-            check_args(xb, W)  # hold CPU callers to the kernel's contract
+    check_args(xb, W)
+    if xb.device.type == "cpu":
         return conv_blocked_plain(xb, W)
-    return KERNEL(xb, W)
+    return KERNELS[W.dim() - 2](xb, W)

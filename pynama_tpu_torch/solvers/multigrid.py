@@ -64,12 +64,15 @@ def blocked_restrict_apply(x, Wr, m, e_lo, Bc, dim):
         shape += (Bc[a] + n_extra, m)
     x = x.reshape(shape + (x.shape[-1],))
     out = None
-    for t in np.ndindex(*(T,) * dim):
+    for t in itertools.product(range(T), repeat=dim):
         idx = []
         for a in range(dim):
             idx += [slice(t[a] // m, Bc[a] + t[a] // m), t[a] % m]
         v = torch.matmul(x[tuple(idx) + (slice(None),)], Wr[t])
-        out = v if out is None else out + v
+        if out is None:
+            out = v
+        else:
+            out += v
     return out
 
 
@@ -87,7 +90,7 @@ def blocked_prolong_apply(xc, Wr, m, e_lo, Bf, dim):
     smax = max(s for s, _ in shifts)
     nsl = smax - smin + 1
     slabs = {}
-    for t in np.ndindex(*(T,) * dim):
+    for t in itertools.product(range(T), repeat=dim):
         v = torch.matmul(xc, Wr[t].transpose(-1, -2))
         rho = tuple(shifts[ta][1] for ta in t)
         v = _pad_spatial(v, [(shifts[ta][0] - smin, smax - shifts[ta][0])
@@ -96,7 +99,7 @@ def blocked_prolong_apply(xc, Wr, m, e_lo, Bf, dim):
     gshape = tuple(b + nsl - 1 for b in Bc)
     zero = None
     parts = []
-    for rho in np.ndindex(*(m,) * dim):
+    for rho in itertools.product(range(m), repeat=dim):
         if rho in slabs:
             parts.append(slabs[rho])
         else:

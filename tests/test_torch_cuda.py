@@ -1,5 +1,6 @@
-"""The CUDA stencil kernel on the card: against its plain version, its
-launch count, and the main path never taking the plain version.
+"""The CUDA stencil kernels on the card: against their plain version,
+their launch counts, and the 2D and 3D paths never taking the plain
+version.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -48,18 +49,35 @@ def test_kernel_matches_plain(cuda, xs, ws, dtype, tol):
     assert err <= tol, err
 
 
-def test_3d_raises_on_cuda(cuda):
-    x = torch.zeros((3, 3, 3, 4), device=cuda)
-    W = torch.zeros((3, 3, 3, 4, 4), device=cuda)
-    with pytest.raises(NotImplementedError):
-        stencil.conv_blocked(x, W)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("xs,ws", [
+    ((7, 5, 9, 64), (3, 3, 3, 64, 64)),
+    ((6, 4, 11, 64), (3, 3, 3, 64, 128)),
+    ((6, 3, 3, 24), (5, 5, 5, 24, 24)),
+    ((11, 5, 5, 192), (3, 3, 3, 192, 384)),
+    ((5, 6, 3, 10), (3, 3, 3, 10, 70)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel3d_matches_plain(cuda, xs, ws, dtype, tol):
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    before = (stencil.KERNEL.launches, stencil.KERNEL3D.launches)
+    y = stencil.conv_blocked(x, W)
+    torch.cuda.synchronize()
+    assert (stencil.KERNEL.launches, stencil.KERNEL3D.launches) == (
+        before[0], before[1] + 1)
+    ref = stencil.conv_blocked_plain(x, W)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+
+
+def refuse(*args):
+    raise AssertionError("plain version reached with a CUDA tensor")
 
 
 def test_cavity_on_cuda_never_takes_plain_version(cuda, monkeypatch):
     from pynama_tpu_torch.cases.cavity import CavityProblem
-
-    def refuse(*args):
-        raise AssertionError("plain version reached with a CUDA tensor")
 
     monkeypatch.setattr(stencil, "conv_blocked_plain", refuse)
     cfg = {
@@ -74,3 +92,22 @@ def test_cavity_on_cuda_never_takes_plain_version(cuda, monkeypatch):
     vort, t, n = p.run(max_steps=2)
     assert n == 2 and torch.isfinite(vort).all()
     assert stencil.KERNEL.launches > before
+
+
+def test_taylor_green_3d_on_cuda_never_takes_plain_version(cuda,
+                                                            monkeypatch):
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+
+    monkeypatch.setattr(stencil, "conv_blocked_plain", refuse)
+    cfg = {
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [4, 4, 4]}},
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "time-solver": {"end-time": 0.5, "dt0": 0.01, "max-dt": 0.01},
+        "kle-rtol": 1e-5,
+    }
+    before = (stencil.KERNEL.launches, stencil.KERNEL3D.launches)
+    p = CustomFuncProblem(cfg, case="taylor-green").setup()
+    vort, t, n = p.run(max_steps=2)
+    assert n == 2 and torch.isfinite(vort).all()
+    assert stencil.KERNEL3D.launches > before[1]
+    assert stencil.KERNEL.launches == before[0]
