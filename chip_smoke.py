@@ -6,8 +6,9 @@
 Phases, each timed; any failure exits non-zero:
 
 1. the card: name and power limit (nvidia-smi), full-float32 matmuls;
-2. the build of both CUDA stencil kernels (csrc/stencil2d.cu,
-   csrc/stencil3d.cu), one nvcc each, started together;
+2. the build of the three CUDA libraries (csrc/stencil2d.cu,
+   csrc/stencil3d.cu, csrc/stencil_breakdown.cu), one nvcc each, started
+   together;
 3. 2D main path: CavityProblem(cfg).setup().run(max_steps=3) at 384x384
    Q2 elements (1,182,722 velocity dofs), float32, multigrid-CG KLE, with
    the kernels' launch counts reset just before and read just after;
@@ -17,8 +18,9 @@ Phases, each timed; any failure exits non-zero:
    before and read just after;
 5. each kernel against its plain PyTorch version at every shape the wrapper
    logged in phases 3 and 4 (float32, plus the busiest shape in float64),
-   with its time, the plain version's, F.conv2d's / F.conv3d's (cuDNN,
-   TF32 off: a yardstick the port never calls) and the card's bound;
+   with its time (taken twice, first and last), the plain version's,
+   F.conv2d's / F.conv3d's (cuDNN, TF32 off: a yardstick the port never
+   calls) and the card's bound;
 6. a 16x16 cavity run twice on the card, through the kernel and with the
    plain version forced, whose vorticities must agree;
 7. the 3D Taylor-Green case (CustomFuncProblem) on 8x8x8 Q2 hexes, 3
@@ -28,7 +30,15 @@ Phases, each timed; any failure exits non-zero:
    torch.profiler. The device busy share is the summed device time of
    that step's kernels over the wall time of step 3 in phase 3 or 4,
    which ran the same work (same stencil launches and CG iterations,
-   checked) without the profiler.
+   checked) without the profiler;
+9. the stencil cost breakdown (pynama_tpu_torch/scripts/stencil_breakdown.py,
+   its own path, not the main path's): at 97x97x128 (the fine K apply)
+   and 25x25x128 (MG level 2), tile rows 8 and 16, each mode of the
+   breakdown kernel against its plain version (fill exactly, IEEE float32
+   to 1e-5, TF32 to 1e-4 of the plain version on TF32-rounded inputs),
+   then every row of run_breakdown timed with the launch counts reset
+   just before; full/highest at tile rows 8 must time within 25% of the
+   production stencil2d row, which runs the same design.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -37,7 +47,6 @@ the nvidia-smi line and {"ok": true, "device": {...}}.
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -47,6 +56,12 @@ import time
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "float64": 1e-12}
+# phase 9: the fine K apply and MG level 2 (the 2D shape furthest behind
+# cuDNN); fill is a copy, highest sums float32 in another order, default
+# sums TF32 products on the tensor cores in another order
+BREAKDOWN_SHAPES = ((97, 97, 128), (25, 25, 128))
+BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
+SAME_DESIGN_GAP = 0.25
 
 
 def cavity_config(nelem):
@@ -194,6 +209,7 @@ def phase_kernels(torch, stencil, kern, logged, out):
         k_ms = event_ms(torch, lambda: kern(x, W), reps)
         p_ms = event_ms(torch, lambda: stencil.conv_blocked_plain(x, W), reps)
         l_ms = event_ms(torch, lib_fn, reps)
+        k_ms2 = event_ms(torch, lambda: kern(x, W), reps)
         size = x.element_size()
         nbytes = size * (math.prod(xs) + math.prod(ws)
                          + math.prod(xs[:-1]) * ws[-1])
@@ -202,14 +218,15 @@ def phase_kernels(torch, stencil, kern, logged, out):
             "dtype": name, "x": list(xs), "W": list(ws),
             "main_path_launches": logged.get((xs, ws, name), 0),
             "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "library_rel_err": lib_err, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_rel_err": lib_err, "kernel_ms": k_ms,
+            "kernel_ms_again": k_ms2, "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
         rows.append(row)
         print(f"  x {str(xs):22s} W {str(ws):24s} {name} x{row['main_path_launches']:<6d} "
-              f"rel err {rel_err:.2e}  kernel {k_ms:.4f} ms  plain "
+              f"rel err {rel_err:.2e}  kernel {k_ms:.4f} / {k_ms2:.4f} ms  plain "
               f"{p_ms:.4f} ms  cuDNN {l_ms:.4f} ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     out[f"{kern.name}_shapes"] = rows
@@ -225,7 +242,7 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), kern.launches, len(p.cg_iters)))
 
-    for k in stencil.KERNELS.values():
+    for k in stencil.LIBRARIES:
         k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -395,27 +412,154 @@ def phase_profile(torch, kern, make_problem, sl, key, out):
               flush=True)
 
 
-def kernel_entry(kern, rows, launches, replaces):
-    head = next(r for r in rows if r["dtype"] == "float32")
+def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
+    """One entry of the "kernels" line; ``head`` holds the kernel's,
+    the plain version's and the library call's times and the bound at the
+    shape the entry reports."""
     return {
-        "name": kern.name,
+        "name": name,
         "route": "cuda",
-        "source": f"pynama_tpu_torch/csrc/{kern.name}.cu",
+        "source": f"pynama_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "float32"),
+        "max_abs_err": max_abs_err,
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "at": f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
-        "shapes": [{k: r[k] for k in (
-            "dtype", "x", "W", "main_path_launches", "max_rel_err",
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-            for r in rows],
+        **extra,
     }
+
+
+def main_path_entry(kern, rows, launches, replaces):
+    """The entry of a main-path kernel from its phase-5 rows, at its
+    busiest float32 shape."""
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    head = f32[0]
+    return kernel_entry(
+        kern.name, replaces, launches, head,
+        max(r["max_abs_err"] for r in f32),
+        at=f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
+        shapes=[{k: r[k] for k in (
+            "dtype", "x", "W", "main_path_launches", "max_rel_err",
+            "kernel_ms", "kernel_ms_again", "plain_ms", "library_ms",
+            "bound_ms")} for r in rows])
+
+
+def phase_breakdown(torch, stencil, out):
+    """Phase 9: the breakdown kernel against its plain version in every
+    mode, then every row of run_breakdown timed; returns the kernel's
+    entry for the "kernels" line."""
+    import numpy as np
+    import torch.nn.functional as tnf
+
+    from pynama_tpu_torch.scripts import stencil_breakdown as sb
+
+    torch.backends.cudnn.allow_tf32 = False
+    # the static SASS of every instance of the tiled 2D kernel: shared
+    # loads (LDS) and FMAs per chunk of the unrolled sweep
+    sass = {}
+    for k in (stencil.KERNEL, stencil.BREAKDOWN):
+        counts = sb.library_sass(k)
+        if counts is None:
+            print(f"  {k.name}: no cuobjdump, no SASS counts", flush=True)
+            continue
+        for name, c in counts.items():
+            sass[f"{k.name}: {name}"] = c
+            print(f"  SASS {k.name}: {name}: " + ", ".join(
+                f"{op} {n}" for op, n in c.items()), flush=True)
+    checks, inputs = [], {}
+    for shape in BREAKDOWN_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        C = shape[-1]
+        x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device="cuda")
+        W = torch.as_tensor(rng.normal(size=(3, 3, C, C)),
+                            dtype=torch.float32, device="cuda")
+        inputs[shape] = x, W
+        x64, W64 = x.double(), W.double()
+        for TR in sb.TILE_ROWS:
+            for name, mode, prec in sb.KERNEL_ROWS:
+                y = sb.make_breakdown(mode, prec, TR)(x, W).double()
+                ref = sb.breakdown_plain(mode, prec, x64, W64)
+                abs_err = float((y - ref).abs().max())
+                rel = abs_err / float(ref.abs().max())
+                tol = BREAKDOWN_TOL["fill" if mode == "fill" else prec]
+                row = {"x": list(shape), "TR": TR, "row": name,
+                       "max_abs_err": abs_err, "max_rel_err": rel,
+                       "tolerance": tol}
+                msg = (f"  x {shape} TR {TR:2d} {name:16s} rel err "
+                       f"{rel:.2e} (limit {tol:g})")
+                if mode != "fill" and prec == "default":
+                    unr = sb.breakdown_plain(mode, "highest", x64, W64)
+                    row["rel_err_vs_unrounded"] = float(
+                        (y - unr).abs().max()) / float(unr.abs().max())
+                    msg += (f"; {row['rel_err_vs_unrounded']:.2e} against "
+                            "the unrounded plain version (reported only)")
+                checks.append(row)
+                print(msg, flush=True)
+                if not rel <= tol:
+                    fail(f"stencil_breakdown {name} TR {TR} at x {shape}: "
+                         f"{rel:.3e} > {tol:g}")
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    runs = []
+    for shape in BREAKDOWN_SHAPES:
+        for TR in sb.TILE_ROWS:
+            print(f"  shape {shape} TR={TR}: graph ms / eager ms per apply, "
+                  "bound, share of the bound", flush=True)
+            rows = sb.run_breakdown(*shape, TR)
+            runs.append({"x": list(shape), "TR": TR, "rows": rows})
+            for r in rows:
+                print(f"    {r['name']:<54s} {r['graph_ms']:8.4f} "
+                      f"{r['eager_ms']:8.4f}  bound {r['bound_ms']:.4f} "
+                      f"({r['bound_by']})  {100 * r['share']:5.1f}%",
+                      flush=True)
+    launches = stencil.BREAKDOWN.launches
+    if launches <= 0:
+        fail("phase 9 launched no stencil_breakdown kernel")
+
+    split = []
+    for run in runs:
+        t = {r["name"]: r["graph_ms"] for r in run["rows"]}
+        full, prod = t["full/highest"], t[sb.PRODUCTION]
+        split.append({"x": run["x"], "TR": run["TR"], "full": full,
+                      "fill": t["fill-only"], "mm": t["mm-only/highest"],
+                      "production": prod, "full_over_production":
+                      full / prod})
+        print(f"  x {tuple(run['x'])} TR {run['TR']:2d}: full/highest "
+              f"{full:.4f} ms | fill-only {t['fill-only']:.4f} + "
+              f"mm-only/highest {t['mm-only/highest']:.4f} = "
+              f"{t['fill-only'] + t['mm-only/highest']:.4f} ms | production "
+              f"stencil2d {prod:.4f} ms, full / production "
+              f"{full / prod:.3f}", flush=True)
+        if run["TR"] == 8 and abs(full / prod - 1) > SAME_DESIGN_GAP:
+            fail(f"full/highest at TR 8 ({full:.4f} ms) is not the "
+                 f"production stencil2d ({prod:.4f} ms) at x {run['x']}: "
+                 "the breakdown does not measure stencil2d")
+
+    # the entry: full/highest at the fine K shape, tile rows 8
+    shape = BREAKDOWN_SHAPES[0]
+    x, W = inputs[shape]
+    row = next(r for r in runs[0]["rows"] if r["name"] == "full/highest")
+    lib_fn, _ = library_call(tnf, x, W)
+    head = {"kernel_ms": row["eager_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "plain_ms": event_ms(torch, lambda: sb.breakdown_plain(
+                "full", "highest", x, W), 20),
+            "library_ms": event_ms(torch, lib_fn, 20)}
+    out["stencil_breakdown"] = {"checks": checks, "runs": runs,
+                                "split": split, "launches": launches,
+                                "entry": head, "sass": sass}
+    return kernel_entry(
+        "stencil_breakdown", "scripts/stencil_breakdown_tpu.py:55",
+        launches, head, max(c["max_abs_err"] for c in checks),
+        main_path_launches=0, graph_ms=row["graph_ms"],
+        at=f"x {shape} float32, full/highest, tile rows 8; ms is 64 "
+           "eager launches, graph_ms the same chain as one CUDA graph; "
+           "launches counts the eager launches, not the graph replays")
 
 
 def main():
@@ -436,6 +580,7 @@ def main():
     from pynama_tpu_torch.cases.cavity import CavityProblem
     from pynama_tpu_torch.cases.uniform import UniformFlowProblem
     from pynama_tpu_torch.ops import stencil
+    from pynama_tpu_torch.scripts.stencil_breakdown import card_line
 
     k2, k3 = stencil.KERNEL, stencil.KERNEL3D
     phase_s = {}
@@ -449,10 +594,7 @@ def main():
         return res
 
     t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    smi = smi[0] if smi else "nvidia-smi: no output"
+    smi = card_line()
     print(f"[1] card: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
     if torch.get_float32_matmul_precision() != "highest" or \
@@ -463,13 +605,16 @@ def main():
     t0 = time.perf_counter()
     stencil.build_kernels()
     phase_s["build"] = time.perf_counter() - t0
-    print(f"[2] built {k2.source.name} in {k2.build_seconds:.1f} s and "
-          f"{k3.source.name} in {k3.build_seconds:.1f} s, in parallel",
-          flush=True)
-    for k in (k2, k3):
+    print("[2] built " + ", ".join(
+        f"{k.source.name} in {k.build_seconds:.1f} s"
+        for k in stencil.LIBRARIES) + ", in parallel", flush=True)
+    for k in stencil.LIBRARIES:  # each kernel's name, registers, spills
         for ln in k.build_log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"    {k.name}: " + ln.strip(), flush=True)
+            if "Compiling entry function" in ln:
+                ln = "entry " + ln.split("'")[1]
+            elif "registers" not in ln and "spill" not in ln:
+                continue
+            print(f"    {k.name}: " + ln.strip(), flush=True)
 
     sl2, logged2 = phase(
         "cavity", "[3] 2D main path: 384x384 cavity, 3 steps",
@@ -508,14 +653,19 @@ def main():
               lambda: phase_profile(
                   torch, k3, lambda: UniformFlowProblem(channel3d_config()),
                   sl3, "profile_3d", out))
+    breakdown = phase(
+        "breakdown", "[9] stencil2d cost breakdown (its own path): "
+        "modes vs plain, then timed",
+        lambda: phase_breakdown(torch, stencil, out))
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = {"kernels": [
-        kernel_entry(k2, rows2, sl2["stencil_launches"],
-                     "pynama_tpu/ops/pallas_stencil.py:173"),
-        kernel_entry(k3, rows3, sl3["stencil_launches"],
-                     "pynama_tpu/ops/pallas_stencil.py:218"),
+        main_path_entry(k2, rows2, sl2["stencil_launches"],
+                        "pynama_tpu/ops/pallas_stencil.py:173"),
+        main_path_entry(k3, rows3, sl3["stencil_launches"],
+                        "pynama_tpu/ops/pallas_stencil.py:218"),
+        breakdown,
     ]}
     out.update(phase_s=phase_s, device=torch.cuda.get_device_name(0),
                nvidia_smi=smi)

@@ -9,7 +9,8 @@ of the solver goes through ``conv_blocked``.
 
 Replaces the TPU kernels of ``pynama_tpu/ops/pallas_stencil.py``:
 ``_kernel_xc`` (2D, called from ``conv_blocked_pallas``) with the
-hand-written Hopper kernel ``csrc/stencil2d.cu``, and ``_kernel3d_xc``
+hand-written Hopper kernel ``csrc/stencil2d.cu`` (an instance of the
+tiled kernel in ``csrc/stencil2d_tile.cuh``), and ``_kernel3d_xc``
 (3D, called from ``_conv3d_pallas``) with ``csrc/stencil3d.cu``; their
 "flat" variants ``_kernel`` and ``_kernel3d`` compute the same functions.
 Bound on an H100 SXM at 700 W, by arithmetic (67 TFLOP/s float32 without
@@ -19,10 +20,13 @@ apply of channel3d (41 x 17 x 17 blocks, 192 -> 192, F = 3) is 23.6
 GFLOP, about 0.35 ms, against about 7 us for its 22 MB at 3.35 TB/s.
 
 Dispatch: a CPU tensor runs ``conv_blocked_plain``; a CUDA tensor
-launches the kernel of its dim or raises. Each kernel is built with
-``nvcc`` at its first use into ``pynama_tpu_torch/_build/`` (listed in
-.gitignore) and loaded with ctypes; building needs ``nvcc`` and raises
-without it. ``build_kernels`` builds both at once, one ``nvcc`` each.
+launches the kernel of its dim or raises. Each CUDA source of ``csrc/``
+is built with ``nvcc`` at its first use into ``pynama_tpu_torch/_build/``
+(listed in .gitignore) and loaded with ctypes (``CudaLibrary``); building
+needs ``nvcc`` and raises without it. ``build_kernels`` builds every
+library at once, one ``nvcc`` each: stencil2d, stencil3d and
+``csrc/stencil_breakdown.cu``, whose wrapper is
+``pynama_tpu_torch/scripts/stencil_breakdown.py``.
 """
 
 import ctypes
@@ -92,29 +96,44 @@ def check_args(xb, W):
         raise ValueError("x and W must be contiguous")
 
 
-class CudaStencil:
-    """The CUDA kernel of csrc/stencil{dim}d.cu, built at first use.
+class CudaLibrary:
+    """The CUDA source csrc/{name}.cu, built at first use into a shared
+    library with a plain C interface; the headers of csrc/ (*.cuh) are
+    part of every library's build tag.
 
-    ``launches`` counts the kernel launches, and nothing else; ``shapes``
-    counts them by (x shape, W shape, dtype).
+    ``symbols`` maps each C function the library exports to its ctypes
+    argument types; every one returns a CUDA error code (0 on success).
+    ``launches`` counts the kernel launches of the library's wrapper, and
+    nothing else; ``shapes`` counts them by what the wrapper logs.
     """
 
-    def __init__(self, dim):
-        self.dim = dim
-        self.name = f"stencil{dim}d"
-        self.source = _PKG / "csrc" / f"{self.name}.cu"
+    def __init__(self, name, symbols):
+        self.name = name
+        self.symbols = symbols
+        self.source = _PKG / "csrc" / f"{name}.cu"
         self.launches = 0
         self.shapes = Counter()
         self.build_seconds = None
         self.build_log = ""
+        self.path = None      # the loaded shared library
         self._lib = None
 
     def reset_counts(self):
         self.launches = 0
         self.shapes.clear()
 
+    def count(self, key):
+        """Log one launch under ``key``. A call made while the current
+        stream captures a CUDA graph only records the kernel into the
+        graph: it launches nothing and is not logged (nor are replays)."""
+        if torch.cuda.is_current_stream_capturing():
+            return
+        self.launches += 1
+        self.shapes[key] += 1
+
     def _so(self):
-        src = self.source.read_bytes()
+        src = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}-{tag[:16]}.so"
 
@@ -143,10 +162,10 @@ class CudaStencil:
                                    f"{self.build_log}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{self.name}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
-                self.dim + 3) + [ctypes.c_void_p]
+        self.path = so
+        for symbol, argtypes in self.symbols.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self.build_seconds = time.perf_counter() - t0
         self._lib = lib
@@ -157,6 +176,18 @@ class CudaStencil:
         if self._lib is None:
             build_kernels([self])
         return self._lib
+
+
+class CudaStencil(CudaLibrary):
+    """The stencil kernel of csrc/stencil{dim}d.cu (float32 and float64);
+    ``shapes`` counts its launches by (x shape, W shape, dtype)."""
+
+    def __init__(self, dim):
+        args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (dim + 3) + [
+            ctypes.c_void_p]
+        super().__init__(f"stencil{dim}d", {
+            f"stencil{dim}d_{s}": args for s in ("f32", "f64")})
+        self.dim = dim
 
     def __call__(self, xb, W):
         check_args(xb, W)
@@ -179,16 +210,15 @@ class CudaStencil:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
                                f"(x {tuple(xb.shape)}, W {tuple(W.shape)})")
-        self.launches += 1
-        self.shapes[(tuple(xb.shape), tuple(W.shape),
-                     str(xb.dtype).replace("torch.", ""))] += 1
+        self.count((tuple(xb.shape), tuple(W.shape),
+                    str(xb.dtype).replace("torch.", "")))
         return y
 
 
 def build_kernels(kernels=None):
-    """Build and load the kernels not built yet, one nvcc each, all
-    started together."""
-    kernels = [k for k in (kernels or KERNELS.values()) if k._lib is None]
+    """Build and load the libraries not built yet (default: all of
+    ``LIBRARIES``), one nvcc each, all started together."""
+    kernels = [k for k in (kernels or LIBRARIES) if k._lib is None]
     t0 = time.perf_counter()
     started = []
     try:
@@ -206,6 +236,11 @@ def build_kernels(kernels=None):
 KERNEL = CudaStencil(2)
 KERNEL3D = CudaStencil(3)
 KERNELS = {2: KERNEL, 3: KERNEL3D}
+# x, W, y, B1, B2, C, TR, mode, prec, stream
+BREAKDOWN = CudaLibrary("stencil_breakdown", {
+    "stencil_breakdown_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]})
+LIBRARIES = (KERNEL, KERNEL3D, BREAKDOWN)
 
 
 def conv_blocked(xb, W):

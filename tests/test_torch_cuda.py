@@ -1,6 +1,7 @@
 """The CUDA stencil kernels on the card: against their plain version,
 their launch counts, and the 2D and 3D paths never taking the plain
-version.
+version; the breakdown kernel in every mode against its plain version,
+and under a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from pynama_tpu_torch.ops import stencil
+from pynama_tpu_torch.scripts import stencil_breakdown as sb
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +113,60 @@ def test_taylor_green_3d_on_cuda_never_takes_plain_version(cuda,
     assert n == 2 and torch.isfinite(vort).all()
     assert stencil.KERNEL3D.launches > before[1]
     assert stencil.KERNEL.launches == before[0]
+
+
+# fill is a copy; highest: float32 sums in another order; default: against
+# the plain version on TF32-rounded inputs, tensor-core sums in another order
+BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
+
+
+@pytest.mark.parametrize("TR", sb.TILE_ROWS)
+@pytest.mark.parametrize("shape", [(97, 97, 128), (21, 13, 32), (10, 7, 70)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("mode,prec", [r[1:] for r in sb.KERNEL_ROWS],
+                         ids=[r[0] for r in sb.KERNEL_ROWS])
+def test_breakdown_matches_plain(cuda, mode, prec, shape, TR):
+    rng = np.random.default_rng(2)
+    C = shape[-1]
+    x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(rng.normal(size=(3, 3, C, C)), dtype=torch.float32,
+                        device=cuda)
+    before = stencil.BREAKDOWN.launches
+    y = sb.make_breakdown(mode, prec, TR)(x, W)
+    torch.cuda.synchronize()
+    assert stencil.BREAKDOWN.launches == before + 1
+    ref = sb.breakdown_plain(mode, prec, x.double(), W.double())
+    err = float((y.double() - ref).abs().max() / ref.abs().max())
+    assert err <= BREAKDOWN_TOL["fill" if mode == "fill" else prec], err
+
+
+@pytest.mark.parametrize("mode,prec", [("full", "highest"),
+                                       ("mm", "default")])
+def test_breakdown_graph_replays_eager_chain(cuda, mode, prec):
+    rng = np.random.default_rng(4)
+    C = 128
+    x = torch.as_tensor(rng.normal(size=(25, 25, C)), dtype=torch.float32,
+                        device=cuda)
+    # entries of variance 1 / (9 C): 64 applies neither overflow nor vanish
+    W = torch.as_tensor(rng.normal(size=(3, 3, C, C)) / (3 * C**0.5),
+                        dtype=torch.float32, device=cuda)
+    apply = sb.make_breakdown(mode, prec, 8)
+
+    def chain(v):
+        for _ in range(64):
+            v = apply(v, W)
+        return v
+
+    eager = chain(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = stencil.BREAKDOWN.launches
+    with torch.cuda.graph(graph):
+        out = chain(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    # neither the capture nor the replay goes through a counted launch
+    assert stencil.BREAKDOWN.launches == before
+    assert torch.isfinite(eager).all() and float(eager.abs().max()) > 0
+    assert torch.equal(out, eager)
