@@ -20,7 +20,14 @@ Phases, each timed; any failure exits non-zero:
    logged in phases 3 and 4 (float32, plus the busiest shape in float64),
    with its time (taken twice, first and last), the plain version's,
    F.conv2d's / F.conv3d's (cuDNN, TF32 off: a yardstick the port never
-   calls) and the card's bound;
+   calls) and the card's bound; for stencil3d also its first design
+   (csrc/stencil3d_v1.cuh, ``v1_ms``), both again as device time (the
+   calls captured in a CUDA graph, ``graph_ms`` / ``v1_graph_ms``: the
+   new kernel may not take longer than the first design at a float32
+   shape) and plan3d's plan; then each instance's registers (ptxas) and
+   static SASS counts (shared loads, 16-byte ones, FMAs per K chunk),
+   and four launches on the same inputs that must agree bit for bit, at
+   the busiest fine shape and at the most-split coarse one;
 6. a 16x16 cavity run twice on the card, through the kernel and with the
    plain version forced, whose vorticities must agree;
 7. the 3D Taylor-Green case (CustomFuncProblem) on 8x8x8 Q2 hexes, 3
@@ -174,11 +181,14 @@ def library_call(tnf, x, W):
     return (lambda: conv(xn, wn, padding=Q)), back
 
 
-def phase_kernels(torch, stencil, kern, logged, out):
+def phase_kernels(torch, stencil, kern, logged, out, v1=None):
     """The kernel against its plain version at every logged shape
-    (float32) and at the busiest one in float64."""
+    (float32) and at the busiest one in float64; with ``v1`` (the first
+    design of the kernel) timed beside it as well."""
     import numpy as np
     import torch.nn.functional as tnf
+
+    from pynama_tpu_torch.scripts.stencil3d_sweep import graph_ms
 
     torch.backends.cudnn.allow_tf32 = False
     shapes = sorted(logged, key=lambda s: -logged[s] * _flops(s[0], s[1]))
@@ -209,6 +219,8 @@ def phase_kernels(torch, stencil, kern, logged, out):
         k_ms = event_ms(torch, lambda: kern(x, W), reps)
         p_ms = event_ms(torch, lambda: stencil.conv_blocked_plain(x, W), reps)
         l_ms = event_ms(torch, lib_fn, reps)
+        v1_ms = None if v1 is None else event_ms(torch, lambda: v1(x, W),
+                                                 reps)
         k_ms2 = event_ms(torch, lambda: kern(x, W), reps)
         size = x.element_size()
         nbytes = size * (math.prod(xs) + math.prod(ws)
@@ -224,13 +236,85 @@ def phase_kernels(torch, stencil, kern, logged, out):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
+        if v1 is not None:
+            p = stencil.plan3d(xs, ws, dtype)
+            row.update(v1_ms=v1_ms, plan={
+                "instance": p.instance, "split": p.split, "blocks": p.blocks,
+                "useful_positions": p.useful_positions},
+                graph_ms=graph_ms(lambda: kern(x, W), reps),
+                v1_graph_ms=graph_ms(lambda: v1(x, W), reps))
         rows.append(row)
         print(f"  x {str(xs):22s} W {str(ws):24s} {name} x{row['main_path_launches']:<6d} "
               f"rel err {rel_err:.2e}  kernel {k_ms:.4f} / {k_ms2:.4f} ms  plain "
               f"{p_ms:.4f} ms  cuDNN {l_ms:.4f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + ("" if v1 is None else
+                 f"  v1 {v1_ms:.4f} ms; as CUDA graphs: kernel "
+                 f"{row['graph_ms']:.4f}, v1 {row['v1_graph_ms']:.4f} ms  "
+                 f"[instance {p.instance}, split {p.split}, {p.blocks} "
+                 "blocks]"), flush=True)
+        if v1 is not None and name == "float32" and \
+                not row["graph_ms"] <= row["v1_graph_ms"]:
+            fail(f"{kern.name} is slower than its first design at x {xs} "
+                 f"W {ws}: {row['graph_ms']:.4f} > {row['v1_graph_ms']:.4f} "
+                 "ms of device time")
     out[f"{kern.name}_shapes"] = rows
     return rows
+
+
+def ptxas_registers(build_log, name):
+    """{instance: registers} from nvcc's -Xptxas -v log; ``name`` maps a
+    mangled kernel name to a readable one."""
+    regs, entry = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = name(ln.split("'")[1])
+        elif entry is not None and "Used" in ln and "registers" in ln:
+            regs[entry] = int(ln.split("Used")[1].split()[0])
+    return regs
+
+
+def phase_kernel3d_design(torch, stencil, kern, rows, out):
+    """Phase 5b's second half: each stencil3d instance's registers and
+    static SASS counts, and bitwise-equal repeat launches at the busiest
+    fine shape and at the most-split coarse shape."""
+    import numpy as np
+
+    from pynama_tpu_torch.scripts import stencil_breakdown as sb
+
+    regs = ptxas_registers(kern.build_log, sb.instance_name)
+    sass = sb.library_sass(kern, sb.SASS_OPS_3D) or {}
+    design = {}
+    for name in sorted(set(regs) | set(sass)):
+        design[name] = {"registers": regs.get(name), **sass.get(name, {})}
+        print(f"  {name}: {regs.get(name)} registers; static SASS "
+              + ", ".join(f"{op} {n}" for op, n in sass.get(name, {}).items()),
+              flush=True)
+    if not sass:
+        print("  no cuobjdump: no SASS counts", flush=True)
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    fine = f32[0]
+    coarse = max(f32, key=lambda r: r["plan"]["split"])
+    if coarse["plan"]["split"] < 2:
+        fail("stencil3d: no logged shape splits K, so none checks the split")
+    repeats = []
+    for r in (fine, coarse):
+        xs, ws = tuple(r["x"]), tuple(r["W"])
+        rng = np.random.default_rng(11)
+        x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
+                            device="cuda")
+        W = torch.as_tensor(rng.normal(size=ws), dtype=torch.float32,
+                            device="cuda")
+        first = kern(x, W)
+        same = all(bool(torch.equal(kern(x, W), first)) for _ in range(3))
+        torch.cuda.synchronize()
+        repeats.append({"x": r["x"], "W": r["W"], "plan": r["plan"],
+                        "bitwise_equal": same})
+        print(f"  x {xs} W {ws}, split {r['plan']['split']}: 4 launches "
+              f"bitwise equal: {same}", flush=True)
+        if not same:
+            fail(f"stencil3d is not deterministic at x {xs}, W {ws}")
+    out["stencil3d_design"] = {"instances": design, "repeats": repeats}
 
 
 def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
@@ -272,7 +356,8 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
     iters = p.cg_iters
     res = {
         "nelem": list(p.nelem), "ngl": p.ngl, "velocity_dofs": dofs,
-        "dtype": "float32", "steps": n, "t": t, "setup_s": t_setup - t0,
+        "dtype": str(p.dtype).replace("torch.", ""), "steps": n, "t": t,
+        "setup_s": t_setup - t0,
         "first_step_incl_initial_rhs_ms": 1e3 * (marks[0][0] - t_setup),
         "ms_per_step": sum(step_ms) / len(step_ms), "step_ms": step_ms,
         "run_s_incl_final_solve": t_end - t_setup,
@@ -434,17 +519,19 @@ def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
 
 def main_path_entry(kern, rows, launches, replaces):
     """The entry of a main-path kernel from its phase-5 rows, at its
-    busiest float32 shape."""
+    busiest float32 shape (with the first design's time, where timed)."""
     f32 = [r for r in rows if r["dtype"] == "float32"]
     head = f32[0]
+    keys = ("dtype", "x", "W", "main_path_launches", "max_rel_err",
+            "kernel_ms", "kernel_ms_again", "plain_ms", "library_ms",
+            "bound_ms", "v1_ms", "graph_ms", "v1_graph_ms", "plan")
+    extra = {k: head[k] for k in ("v1_ms", "graph_ms", "v1_graph_ms")
+             if k in head}
     return kernel_entry(
         kern.name, replaces, launches, head,
         max(r["max_abs_err"] for r in f32),
         at=f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
-        shapes=[{k: r[k] for k in (
-            "dtype", "x", "W", "main_path_launches", "max_rel_err",
-            "kernel_ms", "kernel_ms_again", "plain_ms", "library_ms",
-            "bound_ms")} for r in rows])
+        shapes=[{k: r[k] for k in keys if k in r} for r in rows], **extra)
 
 
 def phase_breakdown(torch, stencil, out):
@@ -583,6 +670,7 @@ def main():
     from pynama_tpu_torch.scripts.stencil_breakdown import card_line
 
     k2, k3 = stencil.KERNEL, stencil.KERNEL3D
+    F32 = torch.float32  # every main-path and small run is float32
     phase_s = {}
     out = {}
 
@@ -619,39 +707,49 @@ def main():
     sl2, logged2 = phase(
         "cavity", "[3] 2D main path: 384x384 cavity, 3 steps",
         lambda: phase_main(torch, stencil, k2,
-                           lambda: CavityProblem(cavity_config(384)),
+                           lambda: CavityProblem(cavity_config(384),
+                                                 dtype=F32),
                            "cavity", out))
     sl3, logged3 = phase(
         "channel3d", "[4] 3D main path: channel3d 32x32x80, 3 steps",
         lambda: phase_main(torch, stencil, k3,
-                           lambda: UniformFlowProblem(channel3d_config()),
+                           lambda: UniformFlowProblem(channel3d_config(),
+                                                      dtype=F32),
                            "channel3d", out, extra=channel_extra(torch)))
     rows2 = phase("kernel_check_2d",
                   "[5a] stencil2d vs plain version at the cavity's shapes",
                   lambda: phase_kernels(torch, stencil, k2, logged2, out))
     rows3 = phase("kernel_check_3d",
-                  "[5b] stencil3d vs plain version at channel3d's shapes",
-                  lambda: phase_kernels(torch, stencil, k3, logged3, out))
+                  "[5b] stencil3d vs plain version at channel3d's shapes, "
+                  "beside its first design (v1)",
+                  lambda: phase_kernels(torch, stencil, k3, logged3, out,
+                                        v1=k3.v1))
+    phase("kernel_design_3d",
+          "[5b] stencil3d instances: registers, SASS, repeat launches",
+          lambda: phase_kernel3d_design(torch, stencil, k3, rows3, out))
     phase("plain_compare_2d",
           "[6] 16x16 cavity: kernel vs plain version on the card",
           lambda: phase_plain_compare(
-              torch, stencil, k2, lambda: CavityProblem(cavity_config(16)),
+              torch, stencil, k2,
+              lambda: CavityProblem(cavity_config(16), dtype=F32),
               "plain_compare_2d", out))
     phase("plain_compare_3d",
           "[7] 8x8x8 3D Taylor-Green: kernel vs plain version on the card",
           lambda: phase_plain_compare(
               torch, stencil, k3,
               lambda: CustomFuncProblem(taylor_green3d_config(),
-                                        case="taylor-green"),
+                                        case="taylor-green", dtype=F32),
               "plain_compare_3d", out, exact_limit=0.15))
     if args.profile:
         phase("profile_2d", "[8a] profile: step 3 of the 384x384 cavity",
               lambda: phase_profile(
-                  torch, k2, lambda: CavityProblem(cavity_config(384)), sl2,
+                  torch, k2,
+                  lambda: CavityProblem(cavity_config(384), dtype=F32), sl2,
                   "profile_2d", out))
         phase("profile_3d", "[8b] profile: step 3 of channel3d",
               lambda: phase_profile(
-                  torch, k3, lambda: UniformFlowProblem(channel3d_config()),
+                  torch, k3,
+                  lambda: UniformFlowProblem(channel3d_config(), dtype=F32),
                   sl3, "profile_3d", out))
     breakdown = phase(
         "breakdown", "[9] stencil2d cost breakdown (its own path): "

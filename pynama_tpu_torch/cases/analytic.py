@@ -14,7 +14,7 @@ from pynama_tpu_torch.kle import v_tens_v
 
 
 class CustomFuncProblem(FreeSlipProblem):
-    def __init__(self, config, case="taylor-green", dtype=torch.float32,
+    def __init__(self, config, case="taylor-green", dtype=torch.float64,
                  device=None):
         super().__init__(config, dtype=dtype, device=device)
         self.case = case

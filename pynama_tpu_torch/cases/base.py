@@ -46,7 +46,7 @@ class BaseProblem:
 
     _mask_names = ()
 
-    def __init__(self, config, dtype=torch.float32, device=None):
+    def __init__(self, config, dtype=torch.float64, device=None):
         self.config = config
         self.dtype = dtype
         self.device = resolve_device(device)

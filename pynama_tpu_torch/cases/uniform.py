@@ -12,7 +12,7 @@ from pynama_tpu_torch.cases.base import FreeSlipProblem
 
 
 class UniformFlowProblem(FreeSlipProblem):
-    def __init__(self, config, dtype=torch.float32, device=None):
+    def __init__(self, config, dtype=torch.float64, device=None):
         super().__init__(config, dtype=dtype, device=device)
         self.cte_value = (1.0, 0.0) if self.dim == 2 else (1.0, 0.0, 0.0)
 

@@ -21,34 +21,47 @@
 // x 17 blocks, 192 -> 192 channels, F = 3) is 23.6 GFLOP and moves about
 // 22 MB, so it is bound by arithmetic: about 0.35 ms at the 67 TFLOP/s
 // float32 CUDA-core peak against about 7 us for the bytes at 3.35 TB/s.
-// The products stay in IEEE float32 FMA (no TF32): lower precision breaks
-// the Chebyshev-smoothed multigrid V-cycle.
+// The products stay in IEEE FMA (no TF32): lower precision breaks the
+// Chebyshev-smoothed multigrid V-cycle.
 //
-// Design (simple and correct first): one thread block computes a tile of
-// T1 x T2 x T3 output blocks by TN output channels. For each chunk of CK
-// input channels it stages the zero-extended (T + 2Q)^3 halo of x in
-// shared memory (a predicated load: no padded copy of x is written), then
-// for each q1 the F x F x CK x TN slab of W (a whole F^3 slice would not
-// fit at F = 5 in double); each thread keeps a 4-position x 4-channel tile
-// of sums in registers. The coarse multigrid levels give few thread
-// blocks; a split over Cin, wgmma and TMA pipelines are later work.
+// Design: an implicit GEMM over linearised positions. With M = B1 B2 B3
+// positions, N = Cout and K = F^3 Cin, y (M, N) = A (M, K) W (K, N),
+// where row p of A holds the Cin channels of x at b(p) + q - Q for every
+// tap q. A thread block owns a BM x BN tile of y and walks K in chunks of
+// BK channels of one tap:
+// - the A chunk is a gather of BM rows of x shifted by the tap, copied
+//   with cp.async and zero-filled (source size 0) where the shifted
+//   position leaves the grid, so no padded copy of x exists; the B chunk
+//   W[q, c0:c0+BK, n0:n0+BN] is contiguous. STAGES chunks are in flight:
+//   the next ones load while this one multiplies.
+// - A is staged position-major with BK (+ one 16-byte pad against bank
+//   conflicts) channels a row; each thread owns TM x TN sums, rows
+//   tm + (BM/TM) i and 16-byte column groups interleaved over the
+//   threads, and reads its A fragment as one 16-byte load per row for V
+//   channels (V = 16 bytes / sizeof(T)) and its B fragment as TN/V
+//   16-byte loads per channel: TM + TN loads per V TM TN FMAs, one per 16
+//   at 8 x 8 floats, where an SM issues one shared load per four FMAs.
+// - Linear positions waste only the last tile's tail (99.5% of the
+//   computed positions are real at 41 x 17 x 17 with BM 128).
+// - Split K: a shape with fewer tiles than the card has SMs (the coarse
+//   multigrid levels) splits the chunk sequence over blockIdx.z; each
+//   split writes its partial tile to a workspace and a second kernel adds
+//   the splits in their order. No atomics: the same inputs give bitwise
+//   the same output on every launch and in every CUDA-graph replay.
+// The host (ops/stencil.py plan3d) picks the instance, the split and the
+// vector path for each shape; stencil3d_instance() reports each
+// instance's tile so that the host's table can be checked against this
+// one.
 
 #include <cuda_runtime.h>
 
+#include "stencil3d_v1.cuh"
+
 namespace {
 
-constexpr int T1 = 4;        // output tile, leading block axis
-constexpr int T2 = 4;
-constexpr int T3 = 4;        // output tile, innermost block axis
-constexpr int TN = 64;       // output channels per thread block
-constexpr int CK = 8;        // input channels per shared-memory chunk
-constexpr int THREADS = 256;
-constexpr int RN = 4;        // channels per thread
-constexpr int NGROUPS = TN / RN;            // 16 channel groups
-constexpr int PGROUPS = THREADS / NGROUPS;  // 16 position groups
-constexpr int TP = T1 * T2 * T3;            // 64 positions per tile
-constexpr int RM = TP / PGROUPS;            // 4 positions per thread
-static_assert(RM * PGROUPS == TP, "tile does not cover");
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; };
+template <> struct Vec<double> { using type = double2; };
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
     return fmaf(a, b, c);
@@ -57,167 +70,350 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
     return fma(a, b, c);
 }
 
-template <typename T, int F>
-constexpr size_t smem_bytes() {
-    return sizeof(T) * (size_t(CK) * (T1 + F - 1) * (T2 + F - 1) * (T3 + F - 1)
-                        + size_t(F) * F * CK * TN);
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; only the
+// first `valid` bytes are read and the rest of the destination is zeroed.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int valid) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(gmem), "n"(BYTES), "r"(valid));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int F>
-__global__ void __launch_bounds__(THREADS)
-stencil3d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 T* __restrict__ y, int B1, int B2, int B3, int Cin,
-                 int Cout) {
-    constexpr int Q = (F - 1) / 2;
-    constexpr int H1 = T1 + 2 * Q;
-    constexpr int H2 = T2 + 2 * Q;
-    constexpr int H3 = T3 + 2 * Q;
-    constexpr int HV = H1 * H2 * H3;
+// One instance: a BM x BN tile of y over THREADS threads of TM x TN sums,
+// K chunks of BK channels, STAGES chunks in flight. VEC: every global copy
+// and store moves 16 bytes (Cin and Cout multiples of V, 16-byte aligned
+// tensors); otherwise one element at a time.
+template <typename T, int BM, int BN, int TM, int TN, int BK, int STAGES,
+          bool VEC>
+struct Tile {
+    static constexpr int V = 16 / int(sizeof(T));  // elements in 16 bytes
+    static constexpr int NTN = BN / TN;              // threads along N
+    static constexpr int NTM = BM / TM;              // threads along M
+    static constexpr int THREADS = NTM * NTN;
+    static constexpr int AP = BK + V;                // padded A row
+    static constexpr int A_ELEMS = BM * AP;
+    static constexpr int STAGE = A_ELEMS + BK * BN;  // A then B
+    static constexpr int CU = VEC ? V : 1;           // elements per copy
+    static constexpr int A_UNITS = BM * BK / CU;
+    static constexpr int B_UNITS = BK * BN / CU;
+    static constexpr int A_PER = (A_UNITS + THREADS - 1) / THREADS;
+    static constexpr int B_PER = (B_UNITS + THREADS - 1) / THREADS;
+    // at most 170 registers a thread: 3 blocks of 128 threads an SM
+    static constexpr int MIN_BLOCKS = THREADS >= 384 ? 1 : 384 / THREADS;
+    static_assert(BM % TM == 0 && BN % TN == 0, "threads do not tile");
+    static_assert(TN % V == 0 && BK % V == 0, "16-byte fragments");
+    static_assert(BN % CU == 0 && BK % CU == 0, "copy units");
+    static constexpr int SMEM = int(sizeof(T)) * STAGES * STAGE;  // bytes
+    static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+// Distance of position b from both edges of an axis of length B, each
+// clipped to 2 (Q <= 2), packed as lo | hi << 2; a shifted copy of the
+// position at s in [-Q, Q] lies in the grid iff -lo <= s <= hi.
+__device__ __forceinline__ int edges(int b, int B) {
+    return min(b, 2) | (min(B - 1 - b, 2) << 2);
+}
+__device__ __forceinline__ bool inside(int e, int s) {
+    return s >= -(e & 3) && s <= ((e >> 2) & 3);
+}
+
+template <typename T, int BM, int BN, int TM, int TN, int BK, int STAGES,
+          bool VEC>
+__global__ void __launch_bounds__(
+    (Tile<T, BM, BN, TM, TN, BK, STAGES, VEC>::THREADS),
+    (Tile<T, BM, BN, TM, TN, BK, STAGES, VEC>::MIN_BLOCKS))
+stencil3d_igemm(const T* __restrict__ x, const T* __restrict__ w,
+                T* __restrict__ out, int B1, int B2, int B3, int Cin,
+                int Cout, int F) {
+    using L = Tile<T, BM, BN, TM, TN, BK, STAGES, VEC>;
+    using VT = typename Vec<T>::type;
+    constexpr int V = L::V, NTN = L::NTN, NTM = L::NTM, CU = L::CU;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* xs = reinterpret_cast<T*>(smem_raw);   // [CK][H1][H2][H3]
-    T* ws = xs + CK * HV;                     // [F*F][CK][TN], one q1 slab
+    T* smem = reinterpret_cast<T*>(smem_raw);
 
-    const int nt2 = (B2 + T2 - 1) / T2;
-    const int nt3 = (B3 + T3 - 1) / T3;
-    int tile = blockIdx.x;
-    const int b3_0 = (tile % nt3) * T3;
-    tile /= nt3;
-    const int b2_0 = (tile % nt2) * T2;
-    const int b1_0 = (tile / nt2) * T1;
-    const int n0 = blockIdx.y * TN;
-
+    const int M = B1 * B2 * B3;
+    const int m0 = blockIdx.x * BM;
+    const int n0 = blockIdx.y * BN;
+    const int Q = (F - 1) / 2;
+    const int nck = (Cin + BK - 1) / BK;          // chunks per tap
+    const int nchunks = F * F * F * nck;
+    const int t0 = int((long long)nchunks * blockIdx.z / gridDim.z);
+    const int t1 = int((long long)nchunks * (blockIdx.z + 1) / gridDim.z);
     const int tid = threadIdx.x;
-    const int tn = tid % NGROUPS;   // my channels: n0 + tn + NGROUPS * j
-    const int tm = tid / NGROUPS;   // my positions: tm + PGROUPS * i
 
-    int off[RM];  // halo offset of my position i at tap (0, 0, 0)
+    // the A rows this thread copies: position (or -1 past M) and edges
+    int a_pos[L::A_PER], a_edge[L::A_PER];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-        const int p = tm + PGROUPS * i;
-        const int p1 = p / (T2 * T3), p2 = (p / T3) % T2, p3 = p % T3;
-        off[i] = (p1 * H2 + p2) * H3 + p3;
-    }
-    T acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = T(0);
-
-    for (int c0 = 0; c0 < Cin; c0 += CK) {
-        __syncthreads();  // the last chunk's reads of xs and ws are done
-        // halo of x, channel fastest so neighbouring threads read
-        // neighbouring addresses; zero outside the grid and past Cin
-        for (int e = tid; e < CK * HV; e += THREADS) {
-            const int c = e % CK;
-            const int r = e / CK;
-            const int h3 = r % H3, h2 = (r / H3) % H2, h1 = r / (H3 * H2);
-            const int g1 = b1_0 + h1 - Q, g2 = b2_0 + h2 - Q,
-                      g3 = b3_0 + h3 - Q, gc = c0 + c;
-            T v = T(0);
-            if (g1 >= 0 && g1 < B1 && g2 >= 0 && g2 < B2 && g3 >= 0 &&
-                g3 < B3 && gc < Cin)
-                v = x[((size_t(g1) * B2 + g2) * B3 + g3) * Cin + gc];
-            xs[c * HV + r] = v;
+    for (int j = 0; j < L::A_PER; ++j) {
+        const int u = tid + L::THREADS * j;
+        const int p = m0 + u / (BK / CU);
+        a_pos[j] = -1;
+        a_edge[j] = 0;
+        if (u < L::A_UNITS && p < M) {
+            const int b3 = p % B3, b2 = (p / B3) % B2, b1 = p / (B3 * B2);
+            a_pos[j] = p;
+            a_edge[j] = edges(b1, B1) | edges(b2, B2) << 4 |
+                        edges(b3, B3) << 8;
         }
-        for (int q1 = 0; q1 < F; ++q1) {
-            if (q1 > 0) __syncthreads();  // reads of the last slab are done
-            // W[q1, :, :, c0:c0+CK, n0:n0+TN], output channel fastest
-            for (int e = tid; e < F * F * CK * TN; e += THREADS) {
-                const int n = e % TN;
-                const int r = e / TN;
-                const int c = r % CK, q23 = r / CK;
-                const int gc = c0 + c, gn = n0 + n;
-                T v = T(0);
-                if (gc < Cin && gn < Cout)
-                    v = w[(size_t(q1 * F * F + q23) * Cin + gc) * Cout + gn];
-                ws[e] = v;
+    }
+
+    // the next chunk to load: tap (q1, q2, q3) = (s1, s2, s3) + Q and its
+    // first channel c0, advanced one chunk per load
+    int c0, s1, s2, s3;
+    {
+        const int q = t0 / nck;
+        c0 = (t0 - q * nck) * BK;
+        s1 = q / (F * F) - Q;
+        s2 = (q / F) % F - Q;
+        s3 = q % F - Q;
+    }
+    auto load = [&](int stage) {
+        T* as = smem + stage * L::STAGE;
+        T* bs = as + L::A_ELEMS;
+        const int q = ((s1 + Q) * F + s2 + Q) * F + s3 + Q;
+        const int shift = (s1 * B2 + s2) * B3 + s3;
+#pragma unroll
+        for (int j = 0; j < L::A_PER; ++j) {
+            const int u = tid + L::THREADS * j;
+            if (u >= L::A_UNITS) break;
+            const int r = u / (BK / CU), k = (u % (BK / CU)) * CU;
+            const int e = a_edge[j];
+            const bool ok = a_pos[j] >= 0 && inside(e, s1) &&
+                            inside(e >> 4, s2) && inside(e >> 8, s3) &&
+                            c0 + k < Cin;
+            const T* src =
+                ok ? x + (size_t)(a_pos[j] + shift) * Cin + c0 + k : x;
+            cp_async<int(CU * sizeof(T))>(as + r * L::AP + k, src,
+                                     ok ? int(CU * sizeof(T)) : 0);
+        }
+#pragma unroll
+        for (int j = 0; j < L::B_PER; ++j) {
+            const int u = tid + L::THREADS * j;
+            if (u >= L::B_UNITS) break;
+            const int r = u / (BN / CU), n = (u % (BN / CU)) * CU;
+            const bool ok = c0 + r < Cin && n0 + n < Cout;
+            const T* src =
+                ok ? w + ((size_t)q * Cin + c0 + r) * Cout + n0 + n : w;
+            cp_async<int(CU * sizeof(T))>(bs + r * BN + n, src,
+                                     ok ? int(CU * sizeof(T)) : 0);
+        }
+        if ((c0 += BK) >= Cin) {
+            c0 = 0;
+            if (++s3 > Q) {
+                s3 = -Q;
+                if (++s2 > Q) {
+                    s2 = -Q;
+                    ++s1;
+                }
             }
-            __syncthreads();
+        }
+    };
+
+    const int tn = tid % NTN, tm = tid / NTN;
+    T acc[TM][TN];
 #pragma unroll
-            for (int q2 = 0; q2 < F; ++q2) {
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-                for (int q3 = 0; q3 < F; ++q3) {
-                    const int toff = (q1 * H2 + q2) * H3 + q3;
-                    const T* wt = ws + (q2 * F + q3) * CK * TN;
+        for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+
 #pragma unroll
-                    for (int c = 0; c < CK; ++c) {
-                        T a[RM], b[RN];
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (t0 + s < t1) load(s);
+        cp_async_commit();
+    }
+    for (int t = t0; t < t1; ++t) {
+        cp_async_wait<STAGES - 2>();
+        // chunk t has landed for every thread, and every thread is done
+        // with the stage that the load below overwrites (chunk t - 1's)
+        __syncthreads();
+        if (t + STAGES - 1 < t1)
+            load((t - t0 + STAGES - 1) % STAGES);
+        cp_async_commit();
+
+        const T* as = smem + ((t - t0) % STAGES) * L::STAGE;
+        const T* bs = as + L::A_ELEMS;
 #pragma unroll
-                        for (int i = 0; i < RM; ++i)
-                            a[i] = xs[c * HV + off[i] + toff];
+        for (int kv = 0; kv < BK; kv += V) {
+            VT a[TM];
 #pragma unroll
-                        for (int j = 0; j < RN; ++j)
-                            b[j] = wt[c * TN + tn + NGROUPS * j];
+            for (int i = 0; i < TM; ++i)
+                a[i] = *reinterpret_cast<const VT*>(
+                    as + (tm + NTM * i) * L::AP + kv);
 #pragma unroll
-                        for (int i = 0; i < RM; ++i)
+            for (int kk = 0; kk < V; ++kk) {
+                T b[TN];
 #pragma unroll
-                            for (int j = 0; j < RN; ++j)
-                                acc[i][j] = fma_t(a[i], b[j], acc[i][j]);
-                    }
+                for (int g = 0; g < TN / V; ++g) {
+                    const VT bv = *reinterpret_cast<const VT*>(
+                        bs + (kv + kk) * BN + (g * NTN + tn) * V);
+#pragma unroll
+                    for (int v = 0; v < V; ++v)
+                        b[g * V + v] = reinterpret_cast<const T*>(&bv)[v];
+                }
+#pragma unroll
+                for (int i = 0; i < TM; ++i) {
+                    const T ai = reinterpret_cast<const T*>(&a[i])[kk];
+#pragma unroll
+                    for (int j = 0; j < TN; ++j)
+                        acc[i][j] = fma_t(ai, b[j], acc[i][j]);
                 }
             }
         }
     }
+    cp_async_wait<0>();
 
+    T* o = out + (size_t)blockIdx.z * M * Cout;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-        const int p = tm + PGROUPS * i;
-        const int g1 = b1_0 + p / (T2 * T3);
-        const int g2 = b2_0 + (p / T3) % T2;
-        const int g3 = b3_0 + p % T3;
-        if (g1 >= B1 || g2 >= B2 || g3 >= B3) continue;
-        T* yp = y + ((size_t(g1) * B2 + g2) * B3 + g3) * Cout;
+    for (int i = 0; i < TM; ++i) {
+        const int p = m0 + tm + NTM * i;
+        if (p >= M) continue;
+        T* row = o + (size_t)p * Cout;
 #pragma unroll
-        for (int j = 0; j < RN; ++j) {
-            const int gn = n0 + tn + NGROUPS * j;
-            if (gn < Cout) yp[gn] = acc[i][j];
+        for (int g = 0; g < TN / V; ++g) {
+            const int n = n0 + (g * NTN + tn) * V;
+            if (VEC) {
+                if (n < Cout) {
+                    VT v;
+#pragma unroll
+                    for (int e = 0; e < V; ++e)
+                        reinterpret_cast<T*>(&v)[e] = acc[i][g * V + e];
+                    *reinterpret_cast<VT*>(row + n) = v;
+                }
+            } else {
+#pragma unroll
+                for (int e = 0; e < V; ++e)
+                    if (n + e < Cout) row[n + e] = acc[i][g * V + e];
+            }
         }
     }
 }
 
-template <typename T, int F>
-int launch(const T* x, const T* w, T* y, int B1, int B2, int B3, int Cin,
-           int Cout, cudaStream_t stream) {
-    constexpr size_t smem = smem_bytes<T, F>();
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            stencil3d_kernel<T, F>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-        if (err != cudaSuccess) return int(err);
+// y = sum over the splits s = 0, 1, .., S - 1 of ws[s], in that order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+reduce_splits(const T* __restrict__ ws, T* __restrict__ y, int S,
+              size_t n) {
+    for (size_t i = blockIdx.x * size_t(256) + threadIdx.x; i < n;
+         i += size_t(256) * gridDim.x) {
+        T s = ws[i];
+        for (int k = 1; k < S; ++k) s += ws[k * n + i];
+        y[i] = s;
     }
-    const int tiles = ((B1 + T1 - 1) / T1) * ((B2 + T2 - 1) / T2)
-                      * ((B3 + T3 - 1) / T3);
-    const dim3 grid(tiles, (Cout + TN - 1) / TN);
-    stencil3d_kernel<T, F><<<grid, THREADS, smem, stream>>>(
-        x, w, y, B1, B2, B3, Cin, Cout);
+}
+
+template <typename T, int BM, int BN, int TM, int TN, int BK, int STAGES,
+          bool VEC>
+int launch_tile(const T* x, const T* w, T* y, T* ws, int B1, int B2, int B3,
+                int Cin, int Cout, int F, int split, cudaStream_t s) {
+    using L = Tile<T, BM, BN, TM, TN, BK, STAGES, VEC>;
+    if (L::SMEM > 48 * 1024) {
+        // once per instance, before any launch (and so before a capture)
+        static const cudaError_t set = cudaFuncSetAttribute(
+            stencil3d_igemm<T, BM, BN, TM, TN, BK, STAGES, VEC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+        if (set != cudaSuccess) return int(set);
+    }
+    const int M = B1 * B2 * B3;
+    const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN, split);
+    stencil3d_igemm<T, BM, BN, TM, TN, BK, STAGES, VEC>
+        <<<grid, L::THREADS, L::SMEM, s>>>(x, w, split > 1 ? ws : y, B1, B2,
+                                           B3, Cin, Cout, F);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || split == 1) return int(err);
+    const size_t n = size_t(M) * Cout;
+    const int blocks = int(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024);
+    reduce_splits<T><<<blocks, 256, 0, s>>>(ws, y, split, n);
     return int(cudaGetLastError());
 }
 
+// The instances: id, element type, BM, BN, TM, TN, BK, STAGES.
+// ops/stencil.py INSTANCES3D holds the same table. 0 serves float32 from
+// 25 output channels up, 1 the 24-channel layouts, 2 float64.
+#define STENCIL3D_INSTANCES(X)              \
+    X(0, float, 128, 64, 8, 8, 16, 4)       \
+    X(1, float, 128, 24, 8, 4, 8, 3)        \
+    X(2, double, 64, 64, 4, 8, 8, 3)
+
 template <typename T>
-int dispatch(const T* x, const T* w, T* y, int B1, int B2, int B3, int Cin,
-             int Cout, int F, void* stream) {
-    if (B1 <= 0 || B2 <= 0 || B3 <= 0 || Cin <= 0 || Cout <= 0)
+int dispatch(const T* x, const T* w, T* y, T* ws, int B1, int B2, int B3,
+             int Cin, int Cout, int F, int instance, int split, int vec,
+             void* stream) {
+    if (B1 <= 0 || B2 <= 0 || B3 <= 0 || Cin <= 0 || Cout <= 0 ||
+        (F != 3 && F != 5) || split < 1 || split > 64 ||
+        (split > 1 && ws == nullptr))
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (F) {
-        case 3: return launch<T, 3>(x, w, y, B1, B2, B3, Cin, Cout, s);
-        case 5: return launch<T, 5>(x, w, y, B1, B2, B3, Cin, Cout, s);
-        default: return int(cudaErrorInvalidValue);
+#define STENCIL3D_CASE(ID, TYPE, BM, BN, TM, TN, BK, ST)                   \
+    if (instance == ID) {                                                   \
+        if constexpr (sizeof(TYPE) == sizeof(T)) {                          \
+            auto run = vec ? launch_tile<T, BM, BN, TM, TN, BK, ST, true>   \
+                           : launch_tile<T, BM, BN, TM, TN, BK, ST, false>; \
+            return run(x, w, y, ws, B1, B2, B3, Cin, Cout, F, split, s);    \
+        }                                                                   \
     }
+    STENCIL3D_INSTANCES(STENCIL3D_CASE)
+#undef STENCIL3D_CASE
+    return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes: returns cudaGetLastError() after the
-// launch (0 on success); nothing here synchronises or allocates.
+// Plain C interface for ctypes: each returns cudaGetLastError() after its
+// launches (0 on success); nothing here synchronises or allocates. ws
+// holds split (M, Cout) partial sums when split > 1 (else it may be null).
 extern "C" int stencil3d_f32(const float* x, const float* w, float* y,
-                             int B1, int B2, int B3, int Cin, int Cout,
-                             int F, void* stream) {
-    return dispatch<float>(x, w, y, B1, B2, B3, Cin, Cout, F, stream);
+                             float* ws, int B1, int B2, int B3, int Cin,
+                             int Cout, int F, int instance, int split,
+                             int vec, void* stream) {
+    return dispatch<float>(x, w, y, ws, B1, B2, B3, Cin, Cout, F, instance,
+                           split, vec, stream);
 }
 
 extern "C" int stencil3d_f64(const double* x, const double* w, double* y,
-                             int B1, int B2, int B3, int Cin, int Cout,
-                             int F, void* stream) {
-    return dispatch<double>(x, w, y, B1, B2, B3, Cin, Cout, F, stream);
+                             double* ws, int B1, int B2, int B3, int Cin,
+                             int Cout, int F, int instance, int split,
+                             int vec, void* stream) {
+    return dispatch<double>(x, w, y, ws, B1, B2, B3, Cin, Cout, F, instance,
+                            split, vec, stream);
+}
+
+// Instance `id`'s element size in bytes, BM, BN, TM, TN, BK, STAGES,
+// threads and shared-memory bytes into out[0..8]; returns 0, or
+// cudaErrorInvalidValue for an unknown id.
+extern "C" int stencil3d_instance(int id, int* out) {
+#define STENCIL3D_INFO(ID, TYPE, BM, BN, TM, TN, BK, ST)                 \
+    if (id == ID) {                                                      \
+        using L = Tile<TYPE, BM, BN, TM, TN, BK, ST, true>;              \
+        const int v[9] = {int(sizeof(TYPE)), BM, BN, TM, TN, BK, ST,     \
+                          L::THREADS, L::SMEM};                          \
+        for (int i = 0; i < 9; ++i) out[i] = v[i];                       \
+        return 0;                                                        \
+    }
+    STENCIL3D_INSTANCES(STENCIL3D_INFO)
+#undef STENCIL3D_INFO
+    return int(cudaErrorInvalidValue);
+}
+
+// The first design (stencil3d_v1.cuh), a yardstick only.
+extern "C" int stencil3d_v1_f32(const float* x, const float* w, float* y,
+                                int B1, int B2, int B3, int Cin, int Cout,
+                                int F, void* stream) {
+    return stencil3d_v1::dispatch<float>(x, w, y, B1, B2, B3, Cin, Cout, F,
+                                         stream);
+}
+
+extern "C" int stencil3d_v1_f64(const double* x, const double* w, double* y,
+                                int B1, int B2, int B3, int Cin, int Cout,
+                                int F, void* stream) {
+    return stencil3d_v1::dispatch<double>(x, w, y, B1, B2, B3, Cin, Cout, F,
+                                          stream);
 }

@@ -280,14 +280,33 @@ def run_breakdown(B1, B2, C, TR, device=None, seed=3):
     return rows
 
 
-_SASS_LINE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+_SASS_LINE = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.\w+)*)")
 _INSTANCE = re.compile(r"stencil2d_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d)ELb([01])E")
+_INSTANCE3D = re.compile(r"stencil3d_igemmI([fd])Li(\d+)ELi(\d+)ELi(\d+)"
+                         r"ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
+_NAMED = ((re.compile(r"stencil3d_v1\d*stencil3d_kernelI([fd])Li(\d)E"),
+           "stencil3d_v1 {} F{}"),
+          (re.compile(r"reduce_splitsI([fd])E"), "reduce_splits {}"))
 SASS_OPS = ("LDS", "STS", "FFMA", "HMMA", "LDG", "BAR")
+# stencil3d's: every shared load, its 16-byte ones, FMAs in each precision
+SASS_OPS_3D = ("LDS", "LDS.128", "FFMA", "DFMA", "LDGSTS", "BAR")
 
 
 def instance_name(mangled):
     """"float32 F3 TH8 full highest" for an instance of the tiled 2D
     kernel (csrc/stencil2d_tile.cuh), else the name as it is."""
+    m = _INSTANCE3D.search(mangled)
+    if m:
+        t, bm, bn, tm, tn, bk, stages, vec = m.groups()
+        return (f"stencil3d {'float32' if t == 'f' else 'float64'} "
+                f"BM{bm} BN{bn} TM{tm} TN{tn} BK{bk} S{stages} "
+                f"{'vec' if vec == '1' else 'scalar'}")
+    for pattern, fmt in _NAMED:
+        m = pattern.search(mangled)
+        if m:
+            return fmt.format("float32" if m.group(1) == "f" else "float64",
+                              *m.groups()[1:])
     m = _INSTANCE.search(mangled)
     if not m:
         return mangled
@@ -296,24 +315,31 @@ def instance_name(mangled):
             f"{MODES[int(mode)]} {PRECISIONS[int(tf32)]}")
 
 
-def sass_counts(sass):
+def sass_counts(sass, ops=SASS_OPS):
     """{kernel: {opcode: count}} of the SASS listing ``sass`` (the text
-    ``cuobjdump -sass`` prints), for the opcodes of SASS_OPS: the static
+    ``cuobjdump -sass`` prints), for the opcodes ``ops``: the static
     count of each instruction in each kernel, so per chunk for the
-    unrolled sweep of the tiled kernel."""
+    unrolled sweep of the tiled kernel. An opcode counts every variant
+    ("LDS" counts LDS.U.128 too); "LDS.128" counts the variants whose
+    last suffix is .128."""
     counts, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = instance_name(ln.split("Function :")[1].strip())
-            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            counts[name] = dict.fromkeys(ops, 0)
             continue
         m = _SASS_LINE.search(ln)
-        if name is not None and m and m.group(1) in SASS_OPS:
-            counts[name][m.group(1)] += 1
+        if name is None or not m:
+            continue
+        for op in ops:
+            base, _, width = op.partition(".")
+            if m.group(1) == base and (
+                    not width or m.group(2).endswith("." + width)):
+                counts[name][op] += 1
     return counts
 
 
-def library_sass(lib):
+def library_sass(lib, ops=SASS_OPS):
     """``cuobjdump -sass`` of a built CudaLibrary, as sass_counts, or
     None where the CUDA toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -321,7 +347,7 @@ def library_sass(lib):
         return None
     out = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    return sass_counts(out)
+    return sass_counts(out, ops)
 
 
 def card_line():

@@ -69,7 +69,7 @@ def test_channel_run_holds_the_uniform_flow():
     cfg["time-solver"].update({"dt0": 1e-3, "max-dt": 1e-3, "atol": 1e12,
                                "rtol": 1e12})
     cfg.update({"kle-rtol": 1e-5, "kle-maxiter": 4000})
-    p = UniformFlowProblem(cfg, device="cpu").setup()
+    p = UniformFlowProblem(cfg, dtype=torch.float32, device="cpu").setup()
     assert p.mg.ratios == [2]
     launches = stencil.KERNEL3D.launches
     vort, t, n = p.run(max_steps=3)

@@ -59,6 +59,11 @@ def test_kernel_matches_plain(cuda, xs, ws, dtype, tol):
     ((6, 3, 3, 24), (5, 5, 5, 24, 24)),
     ((11, 5, 5, 192), (3, 3, 3, 192, 384)),
     ((5, 6, 3, 10), (3, 3, 3, 10, 70)),
+    # many tiles, the last one ragged: 11,849 positions = 92 x 128 + 73
+    ((41, 17, 17, 192), (3, 3, 3, 192, 192)),
+    ((6, 3, 3, 192), (3, 3, 3, 192, 192)),       # K split over blocks
+    ((21, 9, 9, 24), (5, 5, 5, 24, 24)),         # the 24-channel tile
+    ((11, 5, 5, 384), (3, 3, 3, 384, 192)),
 ], ids=lambda s: "x".join(map(str, s)))
 def test_kernel3d_matches_plain(cuda, xs, ws, dtype, tol):
     rng = np.random.default_rng(1)
@@ -68,6 +73,110 @@ def test_kernel3d_matches_plain(cuda, xs, ws, dtype, tol):
     y = stencil.conv_blocked(x, W)
     torch.cuda.synchronize()
     assert (stencil.KERNEL.launches, stencil.KERNEL3D.launches) == (
+        before[0], before[1] + 1)
+    ref = stencil.conv_blocked_plain(x, W)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("xs,ws", [
+    ((7, 5, 9, 64), (3, 3, 3, 64, 64)),
+    ((5, 6, 3, 10), (3, 3, 3, 10, 70)),
+    ((6, 3, 3, 24), (5, 5, 5, 24, 24)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel3d_every_instance_and_split(cuda, xs, ws, dtype):
+    """Each instance of the dtype, unsplit and split, matches the plain
+    version (the vector path where the channels allow it, else the
+    element path)."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    ref = stencil.conv_blocked_plain(x, W)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for inst, spec in stencil.INSTANCES3D.items():
+        if spec[0] != dtype:
+            continue
+        for split in (1, 3, 64):
+            p = stencil.plan3d(xs, ws, dtype, instance=inst,
+                               split=min(split, stencil.plan3d(
+                                   xs, ws, dtype, instance=inst).chunks))
+            y = stencil.KERNEL3D(x, W, p)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (p, err)
+
+
+def test_kernel3d_instance_table_matches_plan(cuda):
+    table = stencil.KERNEL3D.instances()
+    assert {i: t[0] for i, t in table.items()} == stencil.INSTANCES3D
+    for i, (spec, threads, smem) in table.items():
+        dtype, bm, bn, tm, tn, bk, stages = spec
+        assert threads == (bm // tm) * (bn // tn)
+        v = 16 // dtype.itemsize
+        assert smem == dtype.itemsize * stages * (bm * (bk + v) + bk * bn)
+
+
+@pytest.mark.parametrize("xs,ws", [
+    ((41, 17, 17, 192), (3, 3, 3, 192, 192)),
+    ((6, 3, 3, 192), (3, 3, 3, 192, 192)),
+], ids=["fine", "split"])
+def test_kernel3d_repeat_launches_are_bitwise_equal(cuda, xs, ws):
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=torch.float32,
+                        device=cuda)
+    first = stencil.conv_blocked(x, W)
+    for _ in range(3):
+        assert torch.equal(stencil.conv_blocked(x, W), first)
+    if xs[0] == 6:
+        assert stencil.plan3d(xs, ws, torch.float32).split > 1
+
+
+@pytest.mark.parametrize("xs", [(11, 5, 5, 192), (21, 9, 9, 192)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel3d_graph_replays_eager_chain(cuda, xs):
+    rng = np.random.default_rng(7)
+    C = xs[-1]
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
+                        device=cuda)
+    # entries of variance 1 / (27 C): 16 applies neither overflow nor vanish
+    W = torch.as_tensor(rng.normal(size=(3, 3, 3, C, C)) / (27 * C)**0.5,
+                        dtype=torch.float32, device=cuda)
+    assert stencil.plan3d(xs, W.shape, torch.float32).split > 1
+
+    def chain(v):
+        for _ in range(16):
+            v = stencil.conv_blocked(v, W)
+        return v
+
+    eager = chain(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = stencil.KERNEL3D.launches
+    with torch.cuda.graph(graph):
+        out = chain(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert stencil.KERNEL3D.launches == before
+    assert torch.isfinite(eager).all() and float(eager.abs().max()) > 0
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("xs,ws", [
+    ((7, 5, 9, 64), (3, 3, 3, 64, 64)),
+    ((6, 3, 3, 24), (5, 5, 5, 24, 24)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_stencil3d_v1_matches_plain(cuda, xs, ws, dtype, tol):
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    before = (stencil.KERNEL3D.launches, stencil.KERNEL3D.v1_launches)
+    y = stencil.KERNEL3D.v1(x, W)
+    torch.cuda.synchronize()
+    assert (stencil.KERNEL3D.launches, stencil.KERNEL3D.v1_launches) == (
         before[0], before[1] + 1)
     ref = stencil.conv_blocked_plain(x, W)
     err = float((y - ref).abs().max() / ref.abs().max())
@@ -90,7 +199,7 @@ def test_cavity_on_cuda_never_takes_plain_version(cuda, monkeypatch):
         "kle-rtol": 1e-5,
     }
     before = stencil.KERNEL.launches
-    p = CavityProblem(cfg).setup()
+    p = CavityProblem(cfg, dtype=torch.float32).setup()
     vort, t, n = p.run(max_steps=2)
     assert n == 2 and torch.isfinite(vort).all()
     assert stencil.KERNEL.launches > before
@@ -108,7 +217,8 @@ def test_taylor_green_3d_on_cuda_never_takes_plain_version(cuda,
         "kle-rtol": 1e-5,
     }
     before = (stencil.KERNEL.launches, stencil.KERNEL3D.launches)
-    p = CustomFuncProblem(cfg, case="taylor-green").setup()
+    p = CustomFuncProblem(cfg, case="taylor-green",
+                          dtype=torch.float32).setup()
     vort, t, n = p.run(max_steps=2)
     assert n == 2 and torch.isfinite(vort).all()
     assert stencil.KERNEL3D.launches > before[1]
