@@ -16,18 +16,19 @@ Phases, each timed; any failure exits non-zero:
    channel3d (configs/channel3d.yaml: 32x32x80 Q2 hexes, 2,040,675
    velocity dofs) with bench.py's channel3d protocol, counts reset just
    before and read just after;
-5. each kernel against its plain PyTorch version at every shape the wrapper
-   logged in phases 3 and 4 (float32, plus the busiest shape in float64),
-   with its time (taken twice, first and last), the plain version's,
-   F.conv2d's / F.conv3d's (cuDNN, TF32 off: a yardstick the port never
-   calls) and the card's bound; for stencil3d also its first design
-   (csrc/stencil3d_v1.cuh, ``v1_ms``), both again as device time (the
-   calls captured in a CUDA graph, ``graph_ms`` / ``v1_graph_ms``: the
-   new kernel may not take longer than the first design at a float32
-   shape) and plan3d's plan; then each instance's registers (ptxas) and
-   static SASS counts (shared loads, 16-byte ones, FMAs per K chunk),
-   and four launches on the same inputs that must agree bit for bit, at
-   the busiest fine shape and at the most-split coarse one;
+5. each kernel (5a stencil2d, 5b stencil3d) against its plain PyTorch
+   version at every shape the wrapper logged in phases 3 and 4 (float32,
+   plus the busiest shape in float64), with its time (taken twice, first
+   and last), the plain version's, F.conv2d's / F.conv3d's (cuDNN, TF32
+   off: a yardstick the port never calls), the card's bound and its
+   first design's time (``KERNEL.v1`` / ``KERNEL3D.v1``, ``v1_ms``), both
+   again as device time (the calls captured in a CUDA graph,
+   ``graph_ms`` / ``v1_graph_ms``: the new kernel may not take longer
+   than the first design at any shape) and the plan (plan2d / plan3d);
+   then each instance's registers (ptxas) and static SASS counts (shared
+   loads, 16-byte ones, FMAs per K chunk), and four launches on the same
+   inputs that must agree bit for bit, at the busiest fine shape and at
+   the most-split coarse one;
 6. a 16x16 cavity run twice on the card, through the kernel and with the
    plain version forced, whose vorticities must agree;
 7. the 3D Taylor-Green case (CustomFuncProblem) on 8x8x8 Q2 hexes, 3
@@ -45,7 +46,9 @@ Phases, each timed; any failure exits non-zero:
    to 1e-5, TF32 to 1e-4 of the plain version on TF32-rounded inputs),
    then every row of run_breakdown timed with the launch counts reset
    just before; full/highest at tile rows 8 must time within 25% of the
-   production stencil2d row, which runs the same design.
+   stencil2d v1 row (the breakdown measures the design it takes apart:
+   the same instance), with the production stencil2d row reported
+   beside it.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -181,14 +184,14 @@ def library_call(tnf, x, W):
     return (lambda: conv(xn, wn, padding=Q)), back
 
 
-def phase_kernels(torch, stencil, kern, logged, out, v1=None):
+def phase_kernels(torch, stencil, kern, logged, out):
     """The kernel against its plain version at every logged shape
-    (float32) and at the busiest one in float64; with ``v1`` (the first
-    design of the kernel) timed beside it as well."""
+    (float32) and at the busiest one in float64, its first design
+    (``kern.v1``) timed beside it."""
     import numpy as np
     import torch.nn.functional as tnf
 
-    from pynama_tpu_torch.scripts.stencil3d_sweep import graph_ms
+    from pynama_tpu_torch.scripts.stencil_sweep import graph_ms
 
     torch.backends.cudnn.allow_tf32 = False
     shapes = sorted(logged, key=lambda s: -logged[s] * _flops(s[0], s[1]))
@@ -198,6 +201,7 @@ def phase_kernels(torch, stencil, kern, logged, out, v1=None):
     cases = [(xs, ws, "float32") for xs, ws, dt in shapes
              if dt == "float32"] + [(head[0], head[1], "float64")]
     rows = []
+    v1, v1_before = kern.v1, kern.v1_launches
     for xs, ws, name in cases:
         dtype = getattr(torch, name)
         rng = np.random.default_rng(sum(xs) * 1000 + sum(ws))
@@ -219,8 +223,7 @@ def phase_kernels(torch, stencil, kern, logged, out, v1=None):
         k_ms = event_ms(torch, lambda: kern(x, W), reps)
         p_ms = event_ms(torch, lambda: stencil.conv_blocked_plain(x, W), reps)
         l_ms = event_ms(torch, lib_fn, reps)
-        v1_ms = None if v1 is None else event_ms(torch, lambda: v1(x, W),
-                                                 reps)
+        v1_ms = event_ms(torch, lambda: v1(x, W), reps)
         k_ms2 = event_ms(torch, lambda: kern(x, W), reps)
         size = x.element_size()
         nbytes = size * (math.prod(xs) + math.prod(ws)
@@ -236,29 +239,27 @@ def phase_kernels(torch, stencil, kern, logged, out, v1=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
-        if v1 is not None:
-            p = stencil.plan3d(xs, ws, dtype)
-            row.update(v1_ms=v1_ms, plan={
-                "instance": p.instance, "split": p.split, "blocks": p.blocks,
-                "useful_positions": p.useful_positions},
-                graph_ms=graph_ms(lambda: kern(x, W), reps),
-                v1_graph_ms=graph_ms(lambda: v1(x, W), reps))
+        p = kern.plan(xs, ws, dtype)
+        row.update(v1_ms=v1_ms, plan={
+            "instance": p.instance, "split": p.split, "blocks": p.blocks,
+            "vec": p.vec, "useful_positions": p.useful_positions},
+            graph_ms=graph_ms(lambda: kern(x, W), reps),
+            v1_graph_ms=graph_ms(lambda: v1(x, W), reps))
+        row["share_of_bound"] = row["bound_ms"] / row["graph_ms"]
         rows.append(row)
         print(f"  x {str(xs):22s} W {str(ws):24s} {name} x{row['main_path_launches']:<6d} "
               f"rel err {rel_err:.2e}  kernel {k_ms:.4f} / {k_ms2:.4f} ms  plain "
               f"{p_ms:.4f} ms  cuDNN {l_ms:.4f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-              + ("" if v1 is None else
-                 f"  v1 {v1_ms:.4f} ms; as CUDA graphs: kernel "
-                 f"{row['graph_ms']:.4f}, v1 {row['v1_graph_ms']:.4f} ms  "
-                 f"[instance {p.instance}, split {p.split}, {p.blocks} "
-                 "blocks]"), flush=True)
-        if v1 is not None and name == "float32" and \
-                not row["graph_ms"] <= row["v1_graph_ms"]:
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  v1 "
+              f"{v1_ms:.4f} ms; as CUDA graphs: kernel {row['graph_ms']:.4f}, "
+              f"v1 {row['v1_graph_ms']:.4f} ms  [instance {p.instance}, "
+              f"split {p.split}, {p.blocks} blocks]", flush=True)
+        if not row["graph_ms"] <= row["v1_graph_ms"]:
             fail(f"{kern.name} is slower than its first design at x {xs} "
-                 f"W {ws}: {row['graph_ms']:.4f} > {row['v1_graph_ms']:.4f} "
-                 "ms of device time")
+                 f"W {ws} {name}: {row['graph_ms']:.4f} > "
+                 f"{row['v1_graph_ms']:.4f} ms of device time")
     out[f"{kern.name}_shapes"] = rows
+    out[f"{kern.name}_v1_launches"] = kern.v1_launches - v1_before
     return rows
 
 
@@ -274,8 +275,8 @@ def ptxas_registers(build_log, name):
     return regs
 
 
-def phase_kernel3d_design(torch, stencil, kern, rows, out):
-    """Phase 5b's second half: each stencil3d instance's registers and
+def phase_kernel_design(torch, stencil, kern, rows, out):
+    """Phase 5a's or 5b's second half: each instance's registers and
     static SASS counts, and bitwise-equal repeat launches at the busiest
     fine shape and at the most-split coarse shape."""
     import numpy as np
@@ -296,7 +297,8 @@ def phase_kernel3d_design(torch, stencil, kern, rows, out):
     fine = f32[0]
     coarse = max(f32, key=lambda r: r["plan"]["split"])
     if coarse["plan"]["split"] < 2:
-        fail("stencil3d: no logged shape splits K, so none checks the split")
+        fail(f"{kern.name}: no logged shape splits K, so none checks the "
+             "split")
     repeats = []
     for r in (fine, coarse):
         xs, ws = tuple(r["x"]), tuple(r["W"])
@@ -313,8 +315,8 @@ def phase_kernel3d_design(torch, stencil, kern, rows, out):
         print(f"  x {xs} W {ws}, split {r['plan']['split']}: 4 launches "
               f"bitwise equal: {same}", flush=True)
         if not same:
-            fail(f"stencil3d is not deterministic at x {xs}, W {ws}")
-    out["stencil3d_design"] = {"instances": design, "repeats": repeats}
+            fail(f"{kern.name} is not deterministic at x {xs}, W {ws}")
+    out[f"{kern.name}_design"] = {"instances": design, "repeats": repeats}
 
 
 def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
@@ -517,21 +519,23 @@ def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     }
 
 
-def main_path_entry(kern, rows, launches, replaces):
+def main_path_entry(kern, rows, launches, replaces, v1_launches):
     """The entry of a main-path kernel from its phase-5 rows, at its
-    busiest float32 shape (with the first design's time, where timed)."""
+    busiest float32 shape, with its first design's time and launches
+    (phase 5's) and every row's plan."""
     f32 = [r for r in rows if r["dtype"] == "float32"]
     head = f32[0]
     keys = ("dtype", "x", "W", "main_path_launches", "max_rel_err",
             "kernel_ms", "kernel_ms_again", "plain_ms", "library_ms",
-            "bound_ms", "v1_ms", "graph_ms", "v1_graph_ms", "plan")
-    extra = {k: head[k] for k in ("v1_ms", "graph_ms", "v1_graph_ms")
-             if k in head}
+            "bound_ms", "v1_ms", "graph_ms", "v1_graph_ms", "plan",
+            "share_of_bound")
+    extra = {k: head[k] for k in ("v1_ms", "graph_ms", "v1_graph_ms")}
     return kernel_entry(
         kern.name, replaces, launches, head,
         max(r["max_abs_err"] for r in f32),
         at=f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
-        shapes=[{k: r[k] for k in keys if k in r} for r in rows], **extra)
+        v1_launches=v1_launches, plan=head["plan"],
+        shapes=[{k: r[k] for k in keys} for r in rows], **extra)
 
 
 def phase_breakdown(torch, stencil, out):
@@ -611,21 +615,22 @@ def phase_breakdown(torch, stencil, out):
     split = []
     for run in runs:
         t = {r["name"]: r["graph_ms"] for r in run["rows"]}
-        full, prod = t["full/highest"], t[sb.PRODUCTION]
+        full, prod, v1 = t["full/highest"], t[sb.PRODUCTION], t[sb.V1]
         split.append({"x": run["x"], "TR": run["TR"], "full": full,
                       "fill": t["fill-only"], "mm": t["mm-only/highest"],
-                      "production": prod, "full_over_production":
-                      full / prod})
+                      "v1": v1, "full_over_v1": full / v1,
+                      "production": prod, "production_over_v1": prod / v1})
         print(f"  x {tuple(run['x'])} TR {run['TR']:2d}: full/highest "
               f"{full:.4f} ms | fill-only {t['fill-only']:.4f} + "
               f"mm-only/highest {t['mm-only/highest']:.4f} = "
-              f"{t['fill-only'] + t['mm-only/highest']:.4f} ms | production "
-              f"stencil2d {prod:.4f} ms, full / production "
-              f"{full / prod:.3f}", flush=True)
-        if run["TR"] == 8 and abs(full / prod - 1) > SAME_DESIGN_GAP:
-            fail(f"full/highest at TR 8 ({full:.4f} ms) is not the "
-                 f"production stencil2d ({prod:.4f} ms) at x {run['x']}: "
-                 "the breakdown does not measure stencil2d")
+              f"{t['fill-only'] + t['mm-only/highest']:.4f} ms | stencil2d "
+              f"v1 {v1:.4f} ms, full / v1 {full / v1:.3f} | production "
+              f"stencil2d {prod:.4f} ms, production / v1 {prod / v1:.3f}",
+              flush=True)
+        if run["TR"] == 8 and abs(full / v1 - 1) > SAME_DESIGN_GAP:
+            fail(f"full/highest at TR 8 ({full:.4f} ms) is not stencil2d's "
+                 f"first design ({v1:.4f} ms) at x {run['x']}: the "
+                 "breakdown does not measure the design it takes apart")
 
     # the entry: full/highest at the fine K shape, tile rows 8
     shape = BREAKDOWN_SHAPES[0]
@@ -717,16 +722,19 @@ def main():
                                                       dtype=F32),
                            "channel3d", out, extra=channel_extra(torch)))
     rows2 = phase("kernel_check_2d",
-                  "[5a] stencil2d vs plain version at the cavity's shapes",
+                  "[5a] stencil2d vs plain version at the cavity's shapes, "
+                  "beside its first design (v1)",
                   lambda: phase_kernels(torch, stencil, k2, logged2, out))
+    phase("kernel_design_2d",
+          "[5a] stencil2d instances: registers, SASS, repeat launches",
+          lambda: phase_kernel_design(torch, stencil, k2, rows2, out))
     rows3 = phase("kernel_check_3d",
                   "[5b] stencil3d vs plain version at channel3d's shapes, "
                   "beside its first design (v1)",
-                  lambda: phase_kernels(torch, stencil, k3, logged3, out,
-                                        v1=k3.v1))
+                  lambda: phase_kernels(torch, stencil, k3, logged3, out))
     phase("kernel_design_3d",
           "[5b] stencil3d instances: registers, SASS, repeat launches",
-          lambda: phase_kernel3d_design(torch, stencil, k3, rows3, out))
+          lambda: phase_kernel_design(torch, stencil, k3, rows3, out))
     phase("plain_compare_2d",
           "[6] 16x16 cavity: kernel vs plain version on the card",
           lambda: phase_plain_compare(
@@ -760,9 +768,11 @@ def main():
 
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"],
-                        "pynama_tpu/ops/pallas_stencil.py:173"),
+                        "pynama_tpu/ops/pallas_stencil.py:173",
+                        out["stencil2d_v1_launches"]),
         main_path_entry(k3, rows3, sl3["stencil_launches"],
-                        "pynama_tpu/ops/pallas_stencil.py:218"),
+                        "pynama_tpu/ops/pallas_stencil.py:218",
+                        out["stencil3d_v1_launches"]),
         breakdown,
     ]}
     out.update(phase_s=phase_s, device=torch.cuda.get_device_name(0),

@@ -6,13 +6,17 @@ scripts/stencil_breakdown_tpu.py.
 At the cavity's fine K shape (97 x 97 blocks, 128 -> 128 channels, F = 3,
 float32) it times the modes of ``csrc/stencil_breakdown.cu`` (full,
 fill-only and mm-only, in IEEE float32 and in TF32), a dense GEMM loop of
-the same FLOPs, an elementwise pass that reads and writes x once, and the
-production kernel ``stencil.conv_blocked`` (stencil2d), each as a chain of
-64 applies ``v = apply(v, W)``. TR is the kernel's tile rows, 8 (the
-production tile) or 16; the default is 16, as in the TPU script. Each row
-prints its time as one CUDA graph of the chain (the counterpart of the
-script's jitted ``fori_loop``) and launched eagerly, the card's bound for
-the same work and the share of the bound reached. It needs a CUDA device.
+the same FLOPs, an elementwise pass that reads and writes x once, the
+production kernel ``stencil.conv_blocked`` (stencil2d) and stencil2d's
+first design (``stencil.KERNEL.v1``), each as a chain of 64 applies
+``v = apply(v, W)``. The breakdown's modes are instances of that first
+design, the halo-tile kernel of ``csrc/stencil2d_tile.cuh``: full at TR 8
+and highest precision is the very instance ``KERNEL.v1`` launches. TR is
+the kernel's tile rows, 8 (the first design's tile) or 16; the default is
+16, as in the TPU script. Each row prints its time as one CUDA graph of
+the chain (the counterpart of the script's jitted ``fori_loop``) and
+launched eagerly, the card's bound for the same work and the share of the
+bound reached. It needs a CUDA device.
 
 The kernel has no CPU mode: ``make_breakdown``'s ``apply`` launches it on
 CUDA tensors and raises on anything else. ``breakdown_plain`` is the plain
@@ -52,6 +56,7 @@ KERNEL_ROWS = (("full/highest", "full", "highest"),
                ("mm-only/highest", "mm", "highest"),
                ("mm-only/default", "mm", "default"))
 PRODUCTION = "production conv_blocked [stencil2d; serves xc and flat]"
+V1 = "stencil2d v1 [the design the breakdown splits]"
 
 
 def _check_choice(mode, prec):
@@ -234,8 +239,9 @@ def _row(name, times, flop, nbytes, peak):
 def run_breakdown(B1, B2, C, TR, device=None, seed=3):
     """Time every row of the TPU script, under its names and in its order,
     on the card: the five kernel rows, the dense GEMM loop at both
-    precisions, the elementwise pass and the production kernel. Inputs are
-    drawn from ``seed`` with numpy as the script draws them. Returns one
+    precisions, the elementwise pass and the production kernel; then
+    stencil2d's first design, the one the kernel rows take apart. Inputs
+    are drawn from ``seed`` with numpy as the script draws them. Returns one
     dict a row (``graph_ms``, ``eager_ms``, ``bound_ms``, ``share`` ...)."""
     device = resolve_device(device)
     if device.type != "cuda":
@@ -277,29 +283,33 @@ def run_breakdown(B1, B2, C, TR, device=None, seed=3):
     rows.append(_row(PRODUCTION,
                      time_chain(lambda v: stencil.conv_blocked(v, W4), xb),
                      *stencil_work("full", "highest", B1, B2, C)))
+    rows.append(_row(V1, time_chain(lambda v: stencil.KERNEL.v1(v, W4), xb),
+                     *stencil_work("full", "highest", B1, B2, C)))
     return rows
 
 
 _SASS_LINE = re.compile(
     r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.\w+)*)")
 _INSTANCE = re.compile(r"stencil2d_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d)ELb([01])E")
-_INSTANCE3D = re.compile(r"stencil3d_igemmI([fd])Li(\d+)ELi(\d+)ELi(\d+)"
-                         r"ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
+_IGEMM = re.compile(r"stencil([23])d_igemmI([fd])Li(\d+)ELi(\d+)ELi(\d+)"
+                    r"ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
 _NAMED = ((re.compile(r"stencil3d_v1\d*stencil3d_kernelI([fd])Li(\d)E"),
            "stencil3d_v1 {} F{}"),
           (re.compile(r"reduce_splitsI([fd])E"), "reduce_splits {}"))
 SASS_OPS = ("LDS", "STS", "FFMA", "HMMA", "LDG", "BAR")
-# stencil3d's: every shared load, its 16-byte ones, FMAs in each precision
+# the implicit-GEMM kernels': every shared load, its 16-byte ones, FMAs in
+# each precision
 SASS_OPS_3D = ("LDS", "LDS.128", "FFMA", "DFMA", "LDGSTS", "BAR")
 
 
 def instance_name(mangled):
     """"float32 F3 TH8 full highest" for an instance of the tiled 2D
-    kernel (csrc/stencil2d_tile.cuh), else the name as it is."""
-    m = _INSTANCE3D.search(mangled)
+    kernel (csrc/stencil2d_tile.cuh), "stencil2d float32 BM128 BN64 ..."
+    for one of an implicit-GEMM kernel, else the name as it is."""
+    m = _IGEMM.search(mangled)
     if m:
-        t, bm, bn, tm, tn, bk, stages, vec = m.groups()
-        return (f"stencil3d {'float32' if t == 'f' else 'float64'} "
+        dim, t, bm, bn, tm, tn, bk, stages, vec = m.groups()
+        return (f"stencil{dim}d {'float32' if t == 'f' else 'float64'} "
                 f"BM{bm} BN{bn} TM{tm} TN{tn} BK{bk} S{stages} "
                 f"{'vec' if vec == '1' else 'scalar'}")
     for pattern, fmt in _NAMED:

@@ -1,6 +1,7 @@
-"""The CUDA stencil kernels on the card: against their plain version,
-their launch counts, and the 2D and 3D paths never taking the plain
-version; the breakdown kernel in every mode against its plain version,
+"""The CUDA stencil kernels on the card: against their plain version in
+every instance and K split, their first designs, their launch counts,
+bitwise repeats and graph replays, and the 2D and 3D paths never taking
+the plain version; the breakdown kernel in every mode against its plain version,
 and under a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
@@ -177,6 +178,110 @@ def test_stencil3d_v1_matches_plain(cuda, xs, ws, dtype, tol):
     y = stencil.KERNEL3D.v1(x, W)
     torch.cuda.synchronize()
     assert (stencil.KERNEL3D.launches, stencil.KERNEL3D.v1_launches) == (
+        before[0], before[1] + 1)
+    ref = stencil.conv_blocked_plain(x, W)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("xs,ws", [
+    ((21, 13, 64), (3, 3, 64, 64)),
+    ((10, 7, 70), (3, 3, 70, 70)),
+    ((13, 13, 8), (5, 5, 8, 8)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel2d_every_instance_and_split(cuda, xs, ws, dtype):
+    """Each instance of the dtype, unsplit and split, matches the plain
+    version (the vector path where the channels allow it, else the
+    element path)."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    ref = stencil.conv_blocked_plain(x, W)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for inst, spec in stencil.INSTANCES2D.items():
+        if spec[0] != dtype:
+            continue
+        for split in (1, 3, 64):
+            p = stencil.plan2d(xs, ws, dtype, instance=inst,
+                               split=min(split, stencil.plan2d(
+                                   xs, ws, dtype, instance=inst).chunks))
+            y = stencil.KERNEL(x, W, p)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (p, err)
+
+
+def test_kernel2d_instance_table_matches_plan(cuda):
+    table = stencil.KERNEL.instances()
+    assert {i: t[0] for i, t in table.items()} == stencil.INSTANCES2D
+    for i, (spec, threads, smem) in table.items():
+        dtype, bm, bn, tm, tn, bk, stages = spec
+        assert threads == (bm // tm) * (bn // tn)
+        v = 16 // dtype.itemsize
+        assert smem == dtype.itemsize * stages * (bm * (bk + v) + bk * bn)
+
+
+@pytest.mark.parametrize("xs,ws", [
+    ((97, 97, 128), (3, 3, 128, 128)),
+    ((25, 25, 128), (3, 3, 128, 128)),
+    ((385, 385, 8), (5, 5, 8, 8)),
+], ids=["fine", "split", "narrow"])
+def test_kernel2d_repeat_launches_are_bitwise_equal(cuda, xs, ws):
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=torch.float32,
+                        device=cuda)
+    first = stencil.conv_blocked(x, W)
+    for _ in range(3):
+        assert torch.equal(stencil.conv_blocked(x, W), first)
+    assert stencil.plan2d(xs, ws, torch.float32).split > 1
+
+
+@pytest.mark.parametrize("xs", [(25, 25, 128), (13, 13, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel2d_graph_replays_eager_chain(cuda, xs):
+    rng = np.random.default_rng(12)
+    C = xs[-1]
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
+                        device=cuda)
+    # entries of variance 1 / (9 C): 16 applies neither overflow nor vanish
+    W = torch.as_tensor(rng.normal(size=(3, 3, C, C)) / (9 * C)**0.5,
+                        dtype=torch.float32, device=cuda)
+    assert stencil.plan2d(xs, W.shape, torch.float32).split > 1
+
+    def chain(v):
+        for _ in range(16):
+            v = stencil.conv_blocked(v, W)
+        return v
+
+    eager = chain(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = stencil.KERNEL.launches
+    with torch.cuda.graph(graph):
+        out = chain(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert stencil.KERNEL.launches == before
+    assert torch.isfinite(eager).all() and float(eager.abs().max()) > 0
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("xs,ws", [
+    ((21, 13, 64), (3, 3, 64, 64)),
+    ((40, 37, 8), (5, 5, 8, 8)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_stencil2d_v1_matches_plain(cuda, xs, ws, dtype, tol):
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device=cuda)
+    before = (stencil.KERNEL.launches, stencil.KERNEL.v1_launches)
+    y = stencil.KERNEL.v1(x, W)
+    torch.cuda.synchronize()
+    assert (stencil.KERNEL.launches, stencil.KERNEL.v1_launches) == (
         before[0], before[1] + 1)
     ref = stencil.conv_blocked_plain(x, W)
     err = float((y - ref).abs().max() / ref.abs().max())

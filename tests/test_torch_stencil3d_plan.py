@@ -91,11 +91,11 @@ def test_forced_choices_and_purity():
                                                          F32)
     p = stencil.plan3d(xs, ws, F32, instance=1, split=5)
     assert (p.instance, p.split, p.bn) == (1, 5, 24)
-    assert stencil.split3d(1000, 100, 2) == 1
-    assert stencil.split3d(1, 10, 2) == 10
+    assert stencil.split_k(1000, 100, 2) == 1
+    assert stencil.split_k(1, 10, 2) == 10
     # 279 tiles on 132 SMs: 3, 5 and 7 blocks on the busiest SM against
     # means of 2.1, 4.2 and 6.3; the first within BALANCE is split 3
-    assert stencil.split3d(279, 324, 2) == 3
+    assert stencil.split_k(279, 324, 2) == 3
 
 
 @pytest.mark.parametrize("xs,ws,dtype,kw,exc", [
