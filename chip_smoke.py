@@ -48,7 +48,24 @@ Phases, each timed; any failure exits non-zero:
    just before; full/highest at tile rows 8 must time within 25% of the
    stencil2d v1 row (the breakdown measures the design it takes apart:
    the same instance), with the production stencil2d row reported
-   beside it.
+   beside it;
+10. the parity leg (float64 state refined by kle.solve_ir to a true
+   relative residual of 1e-8, float32 multigrid-CG inner solves;
+   bench.py's parity settings):
+   10a CavityProblem(cfg).setup().run(max_steps=3) at 384x384 in
+       float64 under kle-refine, counts reset just before and read just
+       after; stencil2d's float64 launches and its float32 ones must
+       each be > 0;
+   10b the true float64 relative residual of solve_ir on the final mask
+       at the initial vorticity and after step 3, formed anew
+       (<= 1e-8);
+   10c a 16x16 refined cavity through the kernel and with the plain
+       version forced (vorticities within 1e-6);
+   10d one refined solve_kle of the 8x8x8 3D Taylor-Green case
+       (stencil3d's float64 and float32 instances): true residual
+       <= 1e-8, velocity within 0.15 of the exact field;
+   10e stencil2d against its plain version at every shape 10a logged,
+       timed as device time, and 10a's launches and time by instance.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -66,6 +83,8 @@ import time
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "float64": 1e-12}
+# phase 10: bench.py's parity target, a true float64 relative residual
+PARITY_RTOL = 1e-8
 # phase 9: the fine K apply and MG level 2 (the 2D shape furthest behind
 # cuDNN); fill is a copy, highest sums float32 in another order, default
 # sums TF32 products on the tensor cores in another order
@@ -127,6 +146,15 @@ def channel3d_config():
     }
 
 
+def parity_config(nelem):
+    """bench.py's parity leg (bench.py:256-268): float64 state refined by
+    kle.solve_ir to a true relative residual of 1e-8, the adaptive inner
+    tolerance off, no warm-start extrapolation; cavity_config()'s dt of
+    5e-5 (bench.py's 1e-3 lies above the explicit limit)."""
+    return {**cavity_config(nelem), "kle-refine": True,
+            "kle-rtol": PARITY_RTOL, "kle-adaptive-inner": False}
+
+
 def taylor_green3d_config():
     """configs/taylor-green2d-3d.yaml's material (rho 0.5, mu 0.01) on
     8x8x8 Q2 hexes of the unit cube, the 3D Taylor-Green case, KLE rtol
@@ -172,6 +200,35 @@ def _flops(xs, ws):
     return 2.0 * math.prod(xs[:-1]) * math.prod(ws)
 
 
+def bound_times(xs, ws, name):
+    """(seconds by operations, seconds by bytes, bytes) of one contraction
+    at the card's peaks: each input read once, the output written once."""
+    size = 8 if name == "float64" else 4
+    nbytes = size * (math.prod(xs) + math.prod(ws)
+                     + math.prod(xs[:-1]) * ws[-1])
+    return _flops(xs, ws) / PEAK_FLOPS[name], nbytes / PEAK_BYTES, nbytes
+
+
+def checked_inputs(torch, stencil, kern, xs, ws, name):
+    """Seeded inputs of a logged shape, the plain version's result and
+    the kernel's error against it; fails above TOL[name]."""
+    import numpy as np
+
+    dtype = getattr(torch, name)
+    rng = np.random.default_rng(sum(xs) * 1000 + sum(ws))
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device="cuda")
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device="cuda")
+    y = kern(x, W)
+    ref = stencil.conv_blocked_plain(x, W)
+    torch.cuda.synchronize()
+    abs_err = float((y - ref).abs().max())
+    rel_err = abs_err / float(ref.abs().max())
+    if not rel_err <= TOL[name]:
+        fail(f"{kern.name} disagrees at x {xs} W {ws} {name}: "
+             f"{rel_err:.3e}")
+    return x, W, ref, abs_err, rel_err
+
+
 def library_call(tnf, x, W):
     """The same contraction as one cuDNN convolution (NCHW / NCDHW)."""
     dim = W.dim() - 2
@@ -188,7 +245,6 @@ def phase_kernels(torch, stencil, kern, logged, out):
     """The kernel against its plain version at every logged shape
     (float32) and at the busiest one in float64, its first design
     (``kern.v1``) timed beside it."""
-    import numpy as np
     import torch.nn.functional as tnf
 
     from pynama_tpu_torch.scripts.stencil_sweep import graph_ms
@@ -204,17 +260,8 @@ def phase_kernels(torch, stencil, kern, logged, out):
     v1, v1_before = kern.v1, kern.v1_launches
     for xs, ws, name in cases:
         dtype = getattr(torch, name)
-        rng = np.random.default_rng(sum(xs) * 1000 + sum(ws))
-        x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device="cuda")
-        W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device="cuda")
-        y = kern(x, W)
-        ref = stencil.conv_blocked_plain(x, W)
-        torch.cuda.synchronize()
-        abs_err = float((y - ref).abs().max())
-        rel_err = abs_err / float(ref.abs().max())
-        if not rel_err <= TOL[name]:
-            fail(f"{kern.name} disagrees at x {xs} W {ws} {name}: "
-                 f"{rel_err:.3e}")
+        x, W, ref, abs_err, rel_err = checked_inputs(torch, stencil, kern,
+                                                     xs, ws, name)
         lib_fn, back = library_call(tnf, x, W)
         lib = lib_fn()[0].permute(back)
         lib_err = float((lib - ref).abs().max()) / float(ref.abs().max())
@@ -225,10 +272,7 @@ def phase_kernels(torch, stencil, kern, logged, out):
         l_ms = event_ms(torch, lib_fn, reps)
         v1_ms = event_ms(torch, lambda: v1(x, W), reps)
         k_ms2 = event_ms(torch, lambda: kern(x, W), reps)
-        size = x.element_size()
-        nbytes = size * (math.prod(xs) + math.prod(ws)
-                         + math.prod(xs[:-1]) * ws[-1])
-        t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+        t_ops, t_bytes, nbytes = bound_times(xs, ws, name)
         row = {
             "dtype": name, "x": list(xs), "W": list(ws),
             "main_path_launches": logged.get((xs, ws, name), 0),
@@ -404,10 +448,10 @@ def channel_extra(torch):
 
 
 def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
-                        exact_limit=None):
+                        exact_limit=None, limit=1e-4):
     """One small run through the kernel and one with the plain version
-    forced; the vorticities must agree (and, with exact_limit, the
-    velocity must match the problem's exact field)."""
+    forced; the vorticities must agree within ``limit`` (and, with
+    exact_limit, the velocity must match the problem's exact field)."""
     runs = {}
     for mode in ("kernel", "plain"):
         before = kern.launches
@@ -425,7 +469,7 @@ def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
     res = {"nelem": list(pk.nelem), "steps": [nk, np_], "t": [tk, tp],
            "vort_rel_diff": rel, "launches": [lk, lp]}
     msg = (f"  {'x'.join(map(str, pk.nelem))}: steps {nk}/{np_}, t {tk:.4g}, "
-           f"vorticity rel diff {rel:.3e} (limit 1e-4), launches kernel "
+           f"vorticity rel diff {rel:.3e} (limit {limit:g}), launches kernel "
            f"{lk} / plain {lp}")
     if exact_limit is not None:
         vel_e, _ = pk.exact_fields(tk)
@@ -437,11 +481,158 @@ def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
     print(msg, flush=True)
     if nk != np_ or tk != tp or lk <= 0 or lp != 0:
         fail(f"{key}: kernel and plain runs differ in steps or launches")
-    if not rel <= 1e-4:
-        fail(f"{key}: vorticity kernel vs plain: {rel:.3e} > 1e-4")
+    if not rel <= limit:
+        fail(f"{key}: vorticity kernel vs plain: {rel:.3e} > {limit:g}")
     if exact_limit is not None and not res["vel_rel_err_vs_exact"] < \
             exact_limit:
         fail(f"{key}: velocity error vs exact {res['vel_rel_err_vs_exact']}")
+
+
+def launch_split(torch, kern, shapes):
+    """A ``kern.shapes`` log's launches by instance and by dtype."""
+    inst, dtypes = {}, {"float32": 0, "float64": 0}
+    for (xs, ws, name), n in shapes.items():
+        i = kern.plan(xs, ws, getattr(torch, name)).instance
+        inst[i] = inst.get(i, 0) + n
+        dtypes[name] += n
+    return dict(sorted(inst.items())), dtypes
+
+
+def parity_extra(torch, kern, held):
+    """Phase 10a's record beside phase_main's: refinement rounds and
+    inner CG iterations per solve, and stencil2d's launches by instance
+    and dtype; keeps the problem in ``held`` for phase 10b."""
+    def extra(p, vort):
+        held["p"] = p
+        inst, dtypes = launch_split(torch, kern, kern.shapes)
+        rounds, iters = p.ir_rounds, p.cg_iters
+        res = {"rounds_per_solve": sum(rounds) / len(rounds),
+               "max_rounds": max(rounds), "ir_rounds": rounds,
+               "inner_cg_iters_per_solve": sum(iters) / len(iters),
+               "launches_by_instance": inst, "launches_by_dtype": dtypes}
+        print(f"  {len(rounds)} refined solves: {res['rounds_per_solve']:.2f} "
+              f"rounds per solve (max {max(rounds)}), "
+              f"{res['inner_cg_iters_per_solve']:.2f} inner CG iterations "
+              f"per solve; {kern.name} launches by instance {inst}, by "
+              f"dtype {dtypes}", flush=True)
+        if not min(dtypes.values()) > 0:
+            fail(f"parity leg: {kern.name} launches by dtype {dtypes}; "
+                 "both must be > 0")
+        if len(rounds) != len(iters) or rounds[0] < 1:
+            fail(f"parity leg: {len(rounds)} refinement records for "
+                 f"{len(iters)} solves, or a cold first solve took no "
+                 f"round: {rounds}")
+        return res
+    return extra
+
+
+def phase_parity_residual(torch, p, out):
+    """Phase 10b, bench.py's self-check (bench.py:344-373): solve_ir on
+    the final (no-slip) mask at rtol 1e-8, at the initial vorticity and
+    after step 3; the true float64 relative residual is formed anew."""
+    from pynama_tpu_torch.kle import solve_ir
+
+    name = "free_mask"
+    mask, u_bc = p.free_mask_b, p._solver_bc(0.0)
+    rows = []
+    for label, w in (
+            ("initial", p._blk(p.initial_vorticity())),
+            ("after step 3", p._blk(p.vort.reshape(p._gshape(p.dim_w))))):
+        res = solve_ir(p.system, p.system32, w, u_bc, mask,
+                       p.free_mask32_b, rtol=PARITY_RTOL,
+                       maxiter=p.kle_maxiter, inner_rtol=p.kle_inner_rtol,
+                       m_inv32=p._minv[name],
+                       corrections=p._frees_boundary[name])
+        b = p.system.rhs(w, u_bc, mask)
+        r = b - p.system.apply_masked(res.x, mask)
+        rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
+        rows.append({"vorticity": label, "true_rel_residual": rel,
+                     "rounds": res.rounds, "inner_cg_iters": res.iters,
+                     "solve_ir_rel_resnorm": float(
+                         res.resnorm / torch.linalg.norm(b))})
+        print(f"  {label} vorticity: true float64 relative residual "
+              f"{rel:.3e} (limit {PARITY_RTOL:g}), {res.rounds} rounds, "
+              f"{res.iters} inner CG iterations", flush=True)
+        if not rel <= PARITY_RTOL:
+            fail(f"parity self-check at the {label} vorticity: {rel:.3e} "
+                 f"> {PARITY_RTOL:g}")
+    out["parity_residual"] = rows
+
+
+def phase_refine3d(torch, kern, make_problem, out):
+    """Phase 10d: one refined solve_kle of the 3D Taylor-Green case at
+    t_start; the true float64 residual, formed anew, and the velocity
+    against the exact field."""
+    from collections import Counter
+
+    p = make_problem().setup()
+    t = p.t_start
+    w = p.initial_vorticity()
+    before = Counter(kern.shapes)
+    u = p.solve_kle(t, w)
+    torch.cuda.synchronize()
+    inst, dtypes = launch_split(torch, kern, Counter(kern.shapes) - before)
+    b = p.system.rhs(p._blk(w), p._solver_bc(t), p.free_mask_b)
+    r = b - p.system.apply_masked(p._blk(u), p.free_mask_b)
+    rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
+    vel_e, _ = p.exact_fields(t)
+    err = float(torch.linalg.norm(u.reshape(-1) - vel_e.reshape(-1))
+                / torch.linalg.norm(vel_e))
+    out["refine3d"] = {"nelem": list(p.nelem), "true_rel_residual": rel,
+                       "vel_rel_err_vs_exact": err,
+                       "rounds": p.ir_rounds, "inner_cg_iters": p.cg_iters,
+                       "launches_by_instance": inst,
+                       "launches_by_dtype": dtypes}
+    print(f"  {'x'.join(map(str, p.nelem))}: true float64 relative residual "
+          f"{rel:.3e} (limit {PARITY_RTOL:g}), velocity rel err vs exact "
+          f"{err:.3e} (limit 0.15), rounds {p.ir_rounds}, inner CG "
+          f"{p.cg_iters}, {kern.name} launches by instance {inst}",
+          flush=True)
+    if not rel <= PARITY_RTOL:
+        fail(f"3D refined solve: true residual {rel:.3e}")
+    if not err < 0.15:
+        fail(f"3D refined solve: velocity error vs exact {err:.3e}")
+    if not min(dtypes.values()) > 0:
+        fail(f"3D refined solve: {kern.name} launches by dtype {dtypes}; "
+             "both must be > 0")
+
+
+def phase_parity_kernels(torch, stencil, kern, logged, launches, out):
+    """Phase 10e: the kernel against its plain version at every shape the
+    parity leg logged, with device time (the calls captured in a CUDA
+    graph), the plain version's time and the bound; the leg's launches
+    and device time by instance (launches x device time per shape)."""
+    from pynama_tpu_torch.scripts.stencil_sweep import graph_ms
+
+    rows, inst = [], {}
+    for (xs, ws, name), n in sorted(
+            logged.items(), key=lambda kv: -kv[1] * _flops(*kv[0][:2])):
+        x, W, _, abs_err, rel_err = checked_inputs(torch, stencil, kern,
+                                                   xs, ws, name)
+        reps = max(3, min(20, int(5e10 / _flops(xs, ws))))
+        dev = graph_ms(lambda: kern(x, W), reps)
+        p_ms = event_ms(torch, lambda: stencil.conv_blocked_plain(x, W),
+                        reps)
+        bound = 1e3 * max(bound_times(xs, ws, name)[:2])
+        i = kern.plan(xs, ws, getattr(torch, name)).instance
+        rows.append({"x": list(xs), "W": list(ws), "dtype": name,
+                     "instance": i, "main_path_launches": n,
+                     "max_abs_err": abs_err, "max_rel_err": rel_err,
+                     "graph_ms": dev, "plain_ms": p_ms, "bound_ms": bound})
+        e = inst.setdefault(i, {"launches": 0, "device_ms": 0.0})
+        e["launches"] += n
+        e["device_ms"] += n * dev
+        print(f"  x {str(xs):16s} W {str(ws):20s} {name} x{n:<6d} instance "
+              f"{i}: rel err {rel_err:.2e}, device {dev:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound:.4f} ms", flush=True)
+    if sum(e["launches"] for e in inst.values()) != launches:
+        fail(f"phase 10e's shapes hold {inst}, phase 10a counted "
+             f"{launches} launches")
+    for i, e in sorted(inst.items()):
+        print(f"  instance {i}: {e['launches']} launches x device time "
+              f"per shape = {e['device_ms']:.1f} ms (setup, initial RHS, "
+              "3 steps, final solve)", flush=True)
+    out["parity_kernels"] = {"shapes": rows, "by_instance": inst}
 
 
 def phase_profile(torch, kern, make_problem, sl, key, out):
@@ -519,7 +710,7 @@ def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     }
 
 
-def main_path_entry(kern, rows, launches, replaces, v1_launches):
+def main_path_entry(kern, rows, launches, replaces, v1_launches, **more):
     """The entry of a main-path kernel from its phase-5 rows, at its
     busiest float32 shape, with its first design's time and launches
     (phase 5's) and every row's plan."""
@@ -535,7 +726,7 @@ def main_path_entry(kern, rows, launches, replaces, v1_launches):
         max(r["max_abs_err"] for r in f32),
         at=f"x {tuple(head['x'])} float32, W {tuple(head['W'])}",
         v1_launches=v1_launches, plan=head["plan"],
-        shapes=[{k: r[k] for k in keys} for r in rows], **extra)
+        shapes=[{k: r[k] for k in keys} for r in rows], **extra, **more)
 
 
 def phase_breakdown(torch, stencil, out):
@@ -675,7 +866,8 @@ def main():
     from pynama_tpu_torch.scripts.stencil_breakdown import card_line
 
     k2, k3 = stencil.KERNEL, stencil.KERNEL3D
-    F32 = torch.float32  # every main-path and small run is float32
+    # phases 3-9 run float32; phase 10, the parity leg, float64 state
+    F32, F64 = torch.float32, torch.float64
     phase_s = {}
     out = {}
 
@@ -763,13 +955,50 @@ def main():
         "breakdown", "[9] stencil2d cost breakdown (its own path): "
         "modes vs plain, then timed",
         lambda: phase_breakdown(torch, stencil, out))
+    held = {}
+    sl10, logged10 = phase(
+        "parity", "[10a] parity leg: 384x384 cavity, float64 refined by "
+        "kle.solve_ir to 1e-8, float32 inner solves, 3 steps",
+        lambda: phase_main(torch, stencil, k2,
+                           lambda: CavityProblem(parity_config(384),
+                                                 dtype=F64),
+                           "parity", out,
+                           extra=parity_extra(torch, k2, held)))
+    phase("parity_residual",
+          "[10b] parity self-check: true float64 residual of the final "
+          "mask's solve",
+          lambda: phase_parity_residual(torch, held.pop("p"), out))
+    phase("plain_compare_parity",
+          "[10c] 16x16 refined cavity: kernel vs plain version on the card",
+          lambda: phase_plain_compare(
+              torch, stencil, k2,
+              lambda: CavityProblem({**cavity_config(16), "kle-refine": True,
+                                     "kle-rtol": PARITY_RTOL}, dtype=F64),
+              "plain_compare_parity", out, limit=1e-6))
+    phase("refine3d",
+          "[10d] 8x8x8 3D Taylor-Green: one refined KLE solve",
+          lambda: phase_refine3d(
+              torch, k3,
+              lambda: CustomFuncProblem(
+                  {**taylor_green3d_config(), "kle-refine": True,
+                   "kle-rtol": PARITY_RTOL}, case="taylor-green", dtype=F64),
+              out))
+    phase("parity_kernels",
+          "[10e] stencil2d vs plain version at the parity leg's shapes",
+          lambda: phase_parity_kernels(torch, stencil, k2, logged10,
+                                       sl10["stencil_launches"], out))
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = {"kernels": [
-        main_path_entry(k2, rows2, sl2["stencil_launches"],
+        main_path_entry(k2, rows2, sl2["stencil_launches"]
+                        + sl10["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:173",
-                        out["stencil2d_v1_launches"]),
+                        out["stencil2d_v1_launches"],
+                        parity_leg_launches=sl10["launches_by_instance"],
+                        parity_leg_max_abs_err=max(
+                            r["max_abs_err"]
+                            for r in out["parity_kernels"]["shapes"])),
         main_path_entry(k3, rows3, sl3["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",
                         out["stencil3d_v1_launches"]),

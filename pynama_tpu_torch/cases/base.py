@@ -4,9 +4,12 @@ Port of pynama_tpu/cases/base.py for uniform 2D and 3D box meshes. The
 config schema is the reference's YAML: name, material-properties {rho,
 mu}, domain {ngl, box-mesh {nelem, lower, upper}}, time-solver
 {start-time, end-time, max-steps, dt0, atol, rtol, max-dt},
-boundary-conditions, kle-rtol, kle-maxiter, multigrid. The
-mixed-precision refinement (kle-refine), warm-start extrapolation and
-GMRES raise NotImplementedError here, for every problem.
+boundary-conditions, kle-rtol, kle-maxiter, multigrid, and the
+mixed-precision refinement (kle-refine, kle-inner-rtol,
+kle-adaptive-inner: float64 state, float32 multigrid-CG inner solves,
+kle.solve_ir; ignored under float32, as in the reference). Warm-start
+extrapolation and GMRES raise NotImplementedError here, for every
+problem.
 
 Solver state (vorticity, velocity, CG and multigrid internals) lives in
 the blocked layout of ops/conv.py; grid and flat layouts appear only at
@@ -22,7 +25,8 @@ import torch
 
 from pynama_tpu_torch.device import resolve_device
 from pynama_tpu_torch.elements.spectral import SpectralElement
-from pynama_tpu_torch.kle import build_kle_system, build_operators, ns_rhs
+from pynama_tpu_torch.kle import (build_kle_system, build_operators, ns_rhs,
+                                  solve_ir)
 from pynama_tpu_torch.mesh.structured import BoxMesh
 from pynama_tpu_torch.ops import conv
 from pynama_tpu_torch.solvers.rk import make_bs5_stepper
@@ -31,7 +35,6 @@ logger = logging.getLogger("pynama_tpu_torch")
 
 # config keys of the reference whose code paths are not ported yet
 _NOT_PORTED = {
-    "kle-refine": "mixed-precision refinement (kle.solve_ir)",
     "kle-ws-extrapolate": "cross-step warm-start extrapolation",
 }
 
@@ -41,7 +44,9 @@ class BaseProblem:
 
     Subclasses build their numpy BC arrays in ``setup_bc`` (as
     ``self._bc_arrays``, grid layout) and name the free-dof masks that
-    get a multigrid V-cycle in ``_mask_names``.
+    get a multigrid V-cycle in ``_mask_names``. Under refinement each of
+    those masks also has a float32 blocked copy, ``name + "32_b"``, for
+    the inner solves and their float32 V-cycles.
     """
 
     _mask_names = ()
@@ -90,12 +95,22 @@ class BaseProblem:
 
         self.kle_rtol = float(config.get("kle-rtol", 1e-10))
         self.kle_maxiter = int(config.get("kle-maxiter", 5000))
+        # mixed-precision iterative refinement (kle.solve_ir): float64
+        # state and true float64 residuals, float32 inner solves
+        self._refine = bool(config.get("kle-refine")) and \
+            dtype == torch.float64
+        self.kle_inner_rtol = float(config.get("kle-inner-rtol", 1e-4))
+        self.kle_adaptive_inner = bool(config.get("kle-adaptive-inner",
+                                                  True))
 
         bc = config.get("boundary-conditions")
         if bc is not None:
             self.read_boundary_condition(bc)
-        # CG iterations of every KLE solve, in order (host integers)
+        # CG iterations of every KLE solve, in order (host integers;
+        # under refinement the inner iterations), and the refinement
+        # rounds of every refined solve
         self.cg_iters = []
+        self.ir_rounds = []
         self._setup_done = False
 
     # -- hooks ----------------------------------------------------------
@@ -127,6 +142,9 @@ class BaseProblem:
                                        self.device)
         self.operators = build_operators(self.mesh, self.elem, self.dtype,
                                          self.device)
+        if self._refine:
+            self.system32 = build_kle_system(self.mesh, self.elem,
+                                             torch.float32, self.device)
         self.setup_bc()
         self._setup_blocked()
         self.setup_preconditioner()
@@ -159,6 +177,9 @@ class BaseProblem:
             setattr(self, name + "_b", self._tensor(blk))
             self._frees_boundary[name] = conv.mask_frees_boundary(
                 blk, self._solver_ngl, npg)
+            if self._refine and name in self._mask_names:
+                setattr(self, name + "32_b", torch.as_tensor(
+                    blk, dtype=torch.float32, device=self.device))
 
     def _blk(self, grid):
         return conv.to_blocked(grid, self._solver_ngl)
@@ -204,7 +225,9 @@ class BaseProblem:
 
     def setup_preconditioner(self):
         """Geometric-multigrid V-cycles (one per mask); Jacobi-CG under
-        'multigrid: false' or when the mesh cannot be coarsened."""
+        'multigrid: false' or when the mesh cannot be coarsened. Under
+        refinement the V-cycles precondition the float32 inner solves, so
+        they are float32 and built from the float32 masks."""
         self._minv = {}
         if not self.config.get("multigrid", True):
             return
@@ -213,7 +236,9 @@ class BaseProblem:
         mgc = self.config.get("multigrid", True)
         opts = mgc if isinstance(mgc, dict) else {}
         mg = MGPreconditioner(
-            self.mesh, self.elem, dtype=self.dtype, device=self.device,
+            self.mesh, self.elem,
+            dtype=torch.float32 if self._refine else self.dtype,
+            device=self.device,
             pre_smooth=int(opts.get("pre", 3)),
             post_smooth=int(opts.get("post", 3)),
             smoother=opts.get("smoother", "patch"),
@@ -225,9 +250,10 @@ class BaseProblem:
                            "solves use Jacobi-CG", self.name, self.nelem)
             return
         self.mg = mg
+        suffix = "32_b" if self._refine else "_b"
         for name in self._mask_names:
             self._minv[name] = mg.build(
-                getattr(self, name + "_b"),
+                getattr(self, name + suffix),
                 frees_boundary=self._frees_boundary[name])
 
     # -- solves ----------------------------------------------------------
@@ -236,11 +262,22 @@ class BaseProblem:
         return self._blk(self.vel_bc(t))
 
     def _solve(self, name, vort, u_bc, x0, rtol, maxiter, restarts):
-        """One masked KLE solve with the mask ``name`` (blocked layout)."""
-        res = self.system.solve(
-            vort, u_bc, getattr(self, name + "_b"), x0=x0, rtol=rtol,
-            maxiter=maxiter, restarts=restarts, m_inv=self._minv.get(name),
-            corrections=self._frees_boundary[name])
+        """One masked KLE solve with the mask ``name`` (blocked layout);
+        under refinement by solve_ir (``restarts`` unused)."""
+        mask, corr = getattr(self, name + "_b"), self._frees_boundary[name]
+        if self._refine:
+            res = solve_ir(
+                self.system, self.system32, vort, u_bc, mask,
+                getattr(self, name + "32_b"), x0=x0, rtol=rtol,
+                maxiter=maxiter, inner_rtol=self.kle_inner_rtol,
+                adaptive_inner=self.kle_adaptive_inner,
+                m_inv32=self._minv.get(name), corrections=corr)
+            self.ir_rounds.append(res.rounds)
+        else:
+            res = self.system.solve(
+                vort, u_bc, mask, x0=x0, rtol=rtol, maxiter=maxiter,
+                restarts=restarts, m_inv=self._minv.get(name),
+                corrections=corr)
         self.cg_iters.append(res.iters)
         return res
 

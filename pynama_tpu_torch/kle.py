@@ -8,9 +8,10 @@ full elemental operators are kept and constraints are a per-dof mask P
     rhs         = P (Rw w - K ((I-P) u_bc)) + (I-P) u_bc
 """
 
+import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -21,7 +22,7 @@ from pynama_tpu_torch.mesh.structured import BoxMesh
 from pynama_tpu_torch.ops import conv
 from pynama_tpu_torch.ops.structured import (StructuredElementOp,
                                              pick_super_factor)
-from pynama_tpu_torch.solvers.cg import CGResult, cg_solve
+from pynama_tpu_torch.solvers.cg import CGResult, cg_solve, sumdot
 
 
 @dataclass
@@ -89,6 +90,77 @@ class KLESystem:
             x0 = res.x
             total_iters += res.iters
         return CGResult(x=res.x, iters=total_iters, resnorm=res.resnorm)
+
+
+_TINY64 = float(np.finfo(np.float64).tiny)
+
+
+class IRResult(NamedTuple):
+    """CGResult's fields, and the refinement rounds taken."""
+    x: torch.Tensor
+    iters: int
+    resnorm: torch.Tensor
+    rounds: int
+
+
+def solve_ir(sys64: KLESystem, sys32: KLESystem, vort, u_bc, free_mask,
+             free_mask32, x0=None, rtol: float = 1e-8, maxiter: int = 4000,
+             max_rounds: int = 4, inner_rtol: float = 1e-4,
+             adaptive_inner: bool = True, m_inv32=None,
+             corrections=True) -> IRResult:
+    """Mixed-precision iterative refinement: a TRUE float64 residual
+    from float32 inner solves.
+
+    Each round forms the defect r = b - K x with one float64 apply,
+    solves K d = r by float32 CG (``m_inv32``: the float32 V-cycle;
+    None: Jacobi of ``sys32``), and adds d to the float64 iterate, until
+    ||r|| <= rtol ||b|| or ``max_rounds`` rounds. Plain float32 CG stops
+    near a true relative residual of 1e-6 however tight its tolerance;
+    this reaches the 1e-8 of float64 direct solves.
+
+    adaptive_inner: each round asks the inner solve for 0.3 times the
+    reduction still needed, clipped to [inner_rtol, max(5e-2,
+    inner_rtol)] and rounded to float32, computed on the host from the
+    round's one read of ||r||^2. A NaN residual ends the loop at once.
+
+    vort, u_bc, free_mask and x0 are float64 (blocked layout),
+    free_mask32 the same mask in float32; ``corrections`` as in
+    KLESystem.apply_masked, for both applies. Port of
+    pynama_tpu/kle.py solve_ir, whose lax.while_loop over rounds is a
+    host loop here. ``iters`` is the total of the inner CG iterations,
+    ``resnorm`` the true float64 residual norm.
+    """
+    b = sys64.rhs(vort, u_bc, free_mask)
+    if x0 is None:
+        x = (1.0 - free_mask) * u_bc
+    else:
+        x = free_mask * x0 + (1.0 - free_mask) * u_bc
+    if m_inv32 is None:
+        m_inv32 = sys32.jacobi_inv(free_mask32)
+
+    def apply32(v):
+        return sys32.apply_masked(v, free_mask32, corrections)
+
+    r = b - sys64.apply_masked(x, free_mask, corrections)
+    rr = sumdot(r, r)
+    bb_host, rr_host = torch.stack([sumdot(b, b), rr]).tolist()
+    tol2 = rtol**2 * bb_host
+    rounds = iters = 0
+    while rr_host > tol2 and rounds < max_rounds:
+        inner_t = inner_rtol
+        if adaptive_inner:
+            need = math.sqrt(tol2 / max(rr_host, _TINY64))
+            inner_t = float(np.float32(
+                min(max(0.3 * need, inner_rtol), max(5e-2, inner_rtol))))
+        d = cg_solve(apply32, r.to(torch.float32), m_inv=m_inv32,
+                     rtol=inner_t, maxiter=maxiter)
+        x = x + d.x.to(x.dtype)
+        r = b - sys64.apply_masked(x, free_mask, corrections)
+        rr = sumdot(r, r)
+        rr_host = float(rr)
+        rounds += 1
+        iters += d.iters
+    return IRResult(x=x, iters=iters, resnorm=torch.sqrt(rr), rounds=rounds)
 
 
 @dataclass

@@ -1,8 +1,10 @@
 """The CUDA stencil kernels on the card: against their plain version in
 every instance and K split, their first designs, their launch counts,
 bitwise repeats and graph replays, and the 2D and 3D paths never taking
-the plain version; the breakdown kernel in every mode against its plain version,
-and under a CUDA graph.
+the plain version; the refined (kle-refine) solve through the kernels
+against the plain version, its inner solves on the float32 instances;
+the breakdown kernel in every mode against its plain version, and under
+a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -328,6 +330,87 @@ def test_taylor_green_3d_on_cuda_never_takes_plain_version(cuda,
     assert n == 2 and torch.isfinite(vort).all()
     assert stencil.KERNEL3D.launches > before[1]
     assert stencil.KERNEL.launches == before[0]
+
+
+def refined_cavity(nelem):
+    """A float64 cavity under kle-refine (float32 inner solves), on the
+    card."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    cfg = {
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [nelem, nelem]}},
+        "material-properties": {"rho": 1.0, "mu": 0.01},
+        "time-solver": {"end-time": 0.5},
+        "boundary-conditions": {"no-slip": {"up": [1.0, 0.0]}},
+        "kle-refine": True,
+    }
+    return CavityProblem(cfg, dtype=torch.float64).setup()
+
+
+def refined_solve(p, name, seed, rtol):
+    """solve_ir of a seeded vorticity with the problem's mask ``name``;
+    returns the result and the true float64 relative residual."""
+    from pynama_tpu_torch.kle import solve_ir
+
+    rng = np.random.default_rng(seed)
+    w = p._blk(torch.as_tensor(rng.normal(size=p._gshape(1)),
+                               dtype=torch.float64, device="cuda"))
+    mask = getattr(p, name + "_b")
+    res = solve_ir(p.system, p.system32, w, p._u_bc_b, mask,
+                   getattr(p, name + "32_b"), rtol=rtol,
+                   m_inv32=p._minv[name],
+                   corrections=p._frees_boundary[name])
+    b = p.system.rhs(w, p._u_bc_b, mask)
+    r = b - p.system.apply_masked(res.x, mask)
+    return res, float(torch.linalg.norm(r) / torch.linalg.norm(b))
+
+
+@pytest.mark.parametrize("name", ["free_mask_fs", "free_mask"])
+def test_solve_ir_kernels_match_plain(cuda, monkeypatch, name):
+    """solve_ir on a 16x16 cavity through the kernels and with the plain
+    version forced: both reach a true residual of 1e-10, so their
+    velocities agree far below the float32 inner solves' rounding."""
+    out = {}
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(stencil, "conv_blocked",
+                                stencil.conv_blocked_plain)
+        before = stencil.KERNEL.launches
+        res, rel = refined_solve(refined_cavity(16), name, 5, 1e-10)
+        assert rel <= 1e-10, (mode, rel)
+        out[mode] = res.x, stencil.KERNEL.launches - before
+    (xk, lk), (xp, lp) = out["kernel"], out["plain"]
+    assert lk > 0 and lp == 0
+    err = float(torch.linalg.norm(xk - xp) / torch.linalg.norm(xp))
+    assert err <= 1e-8, err
+
+
+def test_solve_ir_inner_solve_launches_float32_only(cuda):
+    """The inner multigrid-CG solve launches only float32 instances of
+    stencil2d; the refined solve as a whole launches both."""
+    from pynama_tpu_torch.solvers.cg import cg_solve
+
+    p = refined_cavity(16)
+    name = "free_mask_fs"
+    m32 = p.free_mask_fs32_b
+    rng = np.random.default_rng(6)
+    r = torch.as_tensor(rng.normal(size=tuple(m32.shape)),
+                        dtype=torch.float32, device="cuda") * m32
+    stencil.KERNEL.reset_counts()
+    d = cg_solve(lambda v: p.system32.apply_masked(
+        v, m32, p._frees_boundary[name]), r, m_inv=p._minv[name],
+        rtol=1e-4)
+    torch.cuda.synchronize()
+    assert d.iters > 0 and d.x.dtype == torch.float32
+    dtypes = {key[2] for key in stencil.KERNEL.shapes}
+    assert stencil.KERNEL.launches > 0 and dtypes == {"float32"}, dtypes
+    stencil.KERNEL.reset_counts()
+    res, rel = refined_solve(p, name, 7, 1e-8)
+    assert rel <= 1e-8 and res.rounds >= 1
+    by_dtype = {"float32": 0, "float64": 0}
+    for key, n in stencil.KERNEL.shapes.items():
+        by_dtype[key[2]] += n
+    assert by_dtype["float32"] > 0 and by_dtype["float64"] > 0, by_dtype
 
 
 # fill is a copy; highest: float32 sums in another order; default: against
