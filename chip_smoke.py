@@ -65,13 +65,30 @@ Phases, each timed; any failure exits non-zero:
        (stencil3d's float64 and float32 instances): true residual
        <= 1e-8, velocity within 0.15 of the exact field;
    10e stencil2d against its plain version at every shape 10a logged,
-       timed as device time, and 10a's launches and time by instance.
+       timed as device time, and 10a's launches and time by instance;
+11. the ws legs: bench.py's float32 cavity and channel3d legs run with
+   kle-ws-extrapolate on (each RK stage warm-starts its KLE solves from
+   its own slot's last two accepted solutions); phases 3 and 4 stay
+   ws-off, and ws changes only warm starts, so each final vorticity
+   must lie within 1e-4 relative of its ws-off counterpart:
+   11a CavityProblem(cfg).setup().run(max_steps=3) at 384x384 with ws
+       on, counts reset just before and read just after, against
+       phase 3 (step 3's CG iterations beside phase 3's);
+   11b bench.py's step on 11a's problem: make_attempt_host_stepper
+       around make_bs5_scan_attempt(ws_extrapolate=True), from
+       make_ws_state after the initial RHS, 3 steps at cavity_config's
+       dt, against 11a;
+   11c UniformFlowProblem(cfg).setup().run(max_steps=3) on channel3d
+       with ws on, against phase 4;
+   11d a 16x16 cavity with ws on through the kernel and with the plain
+       version forced (vorticities within 1e-4).
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import gc
 import json
 import math
 import sys
@@ -91,6 +108,8 @@ PARITY_RTOL = 1e-8
 BREAKDOWN_SHAPES = ((97, 97, 128), (25, 25, 128))
 BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
 SAME_DESIGN_GAP = 0.25
+# phase 11: a ws leg's final vorticity against its ws-off phase's
+WS_LIMIT = 1e-4
 
 
 def cavity_config(nelem):
@@ -124,9 +143,11 @@ def channel3d_config():
     """configs/channel3d.yaml's geometry with bench.py's channel3d
     protocol (bench.py:503-540): KLE rtol 1e-5, at most 4000 CG
     iterations, a fixed dt of 1e-3 (dt0 = max-dt) and tolerances that
-    accept every attempt, so a step is 7 RHS evaluations. bench.py's
-    cross-step warm-start extrapolation is not ported; the stages warm
-    start from the previous stage. The explicit limit scales as h^2 and
+    accept every attempt, so a step is 7 RHS evaluations. bench.py runs
+    it with cross-step warm-start extrapolation on; here it is off (each
+    stage warm-starts from the previous stage), so phase 4 stays
+    comparable with earlier runs, and phase 11c turns it on. The
+    explicit limit scales as h^2 and
     lies near 0.4 at h = 1/8 with the same nu (tests/
     test_torch_cavity_dt_limit.py), about 0.017 at h = 1/32 even with the
     3D Laplacian's 3/2 factor: 17 times the 1e-3 used here."""
@@ -374,8 +395,10 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
 
     for k in stencil.LIBRARIES:
         k.reset_counts()
+    gc.collect()  # earlier phases' problems can hang on in reference cycles
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     p = make_problem()
     p.setup()
@@ -418,6 +441,7 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
         "vort_norm": norm, "mg_ratios": p.mg.ratios,
         "lam_max": p.mg.lam_max,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "mem_at_start_gib": mem0 / 2**30,
     }
     if extra is not None:
         res.update(extra(p, vort))
@@ -425,7 +449,9 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
     print(f"  {dofs} velocity dofs, setup {res['setup_s']:.2f} s, "
           f"{res['ms_per_step']:.1f} ms/step (steps 2-3), first step incl. "
           f"initial RHS {res['first_step_incl_initial_rhs_ms']:.1f} ms, "
-          f"peak memory {res['peak_mem_gib']:.2f} GiB", flush=True)
+          f"peak memory {res['peak_mem_gib']:.2f} GiB "
+          f"({res['mem_at_start_gib']:.2f} allocated at the start)",
+          flush=True)
     print(f"  {len(iters)} KLE solves, {res['cg_iters_per_solve']:.2f} CG "
           f"iterations per solve (max {max(iters)}), {kern.name} launches "
           f"per step {step_launches}, total {launches}; |vort| = "
@@ -690,6 +716,163 @@ def phase_profile(torch, kern, make_problem, sl, key, out):
               flush=True)
 
 
+def keep_run(held, name, extra=None, problem=False):
+    """A phase_main ``extra`` that keeps the run's final vorticity (with
+    ``problem``, the pair (problem, vorticity)) in ``held[name]`` for
+    phase 11. Only 11a keeps its problem: a kept problem's tensors would
+    count in every later phase's peak memory."""
+    def fn(p, vort):
+        held[name] = (p, vort) if problem else vort
+        return extra(p, vort) if extra is not None else {}
+    return fn
+
+
+def step3_iters(res):
+    return sum(res["cg_iters_per_step"][1])
+
+
+def history_leaves(aux_ws):
+    """The tensors of a ws history's two slot stacks (H1, H2)."""
+    from pynama_tpu_torch.solvers.rk import aux_map
+
+    leaves = []
+    aux_map(leaves.append, (aux_ws[0], aux_ws[1]))
+    return leaves
+
+
+def compare_ws(torch, out, key, base_key, vort, base_vort):
+    """A ws leg against its ws-off counterpart: the final vorticity
+    (within WS_LIMIT), ms/step, step 3's CG iterations and peak memory
+    side by side."""
+    ws, base = out[key], out[base_key]
+    rel = float(torch.linalg.norm(vort - base_vort)
+                / torch.linalg.norm(base_vort))
+    ws.update(against=base_key, vort_rel_diff=rel,
+              step3_cg_iters=step3_iters(ws),
+              step3_cg_iters_against=step3_iters(base),
+              ms_per_step_against=base["ms_per_step"],
+              peak_mem_gib_against=base["peak_mem_gib"],
+              mem_at_start_gib_against=base["mem_at_start_gib"])
+    per_step = [[sum(s) for s in r["cg_iters_per_step"]] for r in (ws, base)]
+    print(f"  against {base_key}: vorticity rel diff {rel:.3e} (limit "
+          f"{WS_LIMIT:g}); CG iterations in steps 2-3 {per_step[0]} vs "
+          f"{per_step[1]}; {ws['ms_per_step']:.1f} vs "
+          f"{base['ms_per_step']:.1f} ms/step; peak memory "
+          f"{ws['peak_mem_gib']:.3f} vs {base['peak_mem_gib']:.3f} GiB "
+          f"({ws['mem_at_start_gib']:.3f} and {base['mem_at_start_gib']:.3f} "
+          "allocated at their starts)", flush=True)
+    if not rel <= WS_LIMIT:
+        fail(f"{key}: final vorticity {rel:.3e} off {base_key}'s")
+
+
+def phase_ws_scan(torch, stencil, kern, p, base_vort, out):
+    """Phase 11b, bench.py's float32 cavity step (bench.py:305-326) on
+    phase 11a's problem: the host dt controller around one scan attempt
+    with ws on, from make_ws_state after the initial RHS, 3 steps at
+    cavity_config's dt (bench.py's 1e-3 lies above the explicit limit,
+    see cavity_config), counts reset just before and read just after."""
+    from pynama_tpu_torch.solvers.rk import (make_attempt_host_stepper,
+                                             make_bs5_scan_attempt,
+                                             make_ws_state)
+
+    dt = cavity_config(0)["time-solver"]["max-dt"]
+    step = make_attempt_host_stepper(make_bs5_scan_attempt(
+        p.transport_rhs, atol=1e12, rtol=1e12, ws_extrapolate=True))
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    first = len(p.cg_iters)
+    w, vel = p._blk(p.initial_vorticity()), p._blk(p.zero_vel())
+    t = 0.0
+    f1, vel = p.transport_rhs(t, w, vel)
+    vel = make_ws_state(vel, t)
+    marks = []
+    for _ in range(3):
+        res = step(w, t, dt, vel, f1, 1e9)
+        w, t, vel, f1 = res.y, res.t, res.aux, res.f_new
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), kern.launches, len(p.cg_iters)))
+    launches = kern.launches
+    vort = p._unblk(w).reshape(-1)
+    if not bool(torch.isfinite(vort).all()):
+        fail("ws_scan: final vorticity is not finite")
+    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
+    iters = p.cg_iters[first:]
+    step_iters = [p.cg_iters[a[2]:b[2]] for a, b in zip(marks, marks[1:])]
+    hist = history_leaves(vel)
+    leaves = {h.device.type for h in hist} | {str(h.dtype) for h in hist}
+    out["ws_scan"] = {
+        "t": t, "dt": dt, "ms_per_step": sum(step_ms) / len(step_ms),
+        "step_ms": step_ms, "kle_solves": len(iters),
+        "cg_iters_per_solve": sum(iters) / len(iters), "cg_iters": iters,
+        "cg_iters_per_step": step_iters, "stencil_launches": launches,
+        "stencil_launches_per_step": [b[1] - a[1] for a, b in
+                                      zip(marks, marks[1:])],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "mem_at_start_gib": mem0 / 2**30,
+        "history_bytes": sum(h.numel() * h.element_size() for h in hist),
+        "history_leaves": sorted(leaves),
+    }
+    r = out["ws_scan"]
+    print(f"  t {t:.6g}, {r['ms_per_step']:.1f} ms/step (steps 2-3), "
+          f"{len(iters)} KLE solves, {r['cg_iters_per_solve']:.2f} CG "
+          f"iterations per solve, per step {[sum(s) for s in step_iters]}, "
+          f"{kern.name} launches {launches}; ws history "
+          f"{r['history_bytes'] / 1e6:.1f} MB on {sorted(leaves)}",
+          flush=True)
+    if launches <= 0:
+        fail(f"ws_scan: launched no {kern.name} kernel")
+    if leaves != {"cuda", "torch.float32"}:
+        fail(f"ws_scan: the ws history left the card or float32: {leaves}")
+    compare_ws(torch, out, "ws_scan", "ws_cavity", vort, base_vort)
+
+
+def phase_ws_legs(torch, stencil, phase, held, out):
+    """Phase 11 (see the module's docstring); ``held`` holds phases 3's
+    and 4's final vorticities. Returns phase_main's records of 11a and
+    11c."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.cases.uniform import UniformFlowProblem
+
+    k2, k3, F32 = stencil.KERNEL, stencil.KERNEL3D, torch.float32
+    ws = {"kle-ws-extrapolate": True}
+    sl11a, _ = phase(
+        "ws_cavity", "[11a] ws leg: 384x384 cavity with kle-ws-extrapolate, "
+        "3 steps",
+        lambda: phase_main(torch, stencil, k2,
+                           lambda: CavityProblem({**cavity_config(384), **ws},
+                                                 dtype=F32),
+                           "ws_cavity", out,
+                           extra=keep_run(held, "ws_cavity", problem=True)))
+    p11, vort11 = held.pop("ws_cavity")
+    compare_ws(torch, out, "ws_cavity", "cavity", vort11, held.pop("cavity"))
+    phase("ws_scan", "[11b] ws leg: bench.py's step (scan attempt + host "
+          "stepper, ws on) on 11a's problem, 3 steps",
+          lambda: phase_ws_scan(torch, stencil, k2, p11, vort11, out))
+    del p11  # 11c's peak memory must not count 11a's problem
+    sl11c, _ = phase(
+        "ws_channel3d", "[11c] ws leg: channel3d with kle-ws-extrapolate, "
+        "3 steps",
+        lambda: phase_main(torch, stencil, k3,
+                           lambda: UniformFlowProblem(
+                               {**channel3d_config(), **ws}, dtype=F32),
+                           "ws_channel3d", out,
+                           extra=keep_run(held, "ws_channel3d",
+                                           channel_extra(torch))))
+    compare_ws(torch, out, "ws_channel3d", "channel3d",
+               held.pop("ws_channel3d"), held.pop("channel3d"))
+    phase("plain_compare_ws",
+          "[11d] 16x16 cavity with ws: kernel vs plain version on the card",
+          lambda: phase_plain_compare(
+              torch, stencil, k2,
+              lambda: CavityProblem({**cavity_config(16), **ws}, dtype=F32),
+              "plain_compare_ws", out, limit=WS_LIMIT))
+    return sl11a, sl11c
+
+
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     """One entry of the "kernels" line; ``head`` holds the kernel's,
     the plain version's and the library call's times and the bound at the
@@ -869,6 +1052,7 @@ def main():
     # phases 3-9 run float32; phase 10, the parity leg, float64 state
     F32, F64 = torch.float32, torch.float64
     phase_s = {}
+    mem_after = {}  # GiB still allocated after each phase
     out = {}
 
     def phase(key, title, fn):
@@ -876,6 +1060,7 @@ def main():
         print(title, flush=True)
         res = fn()
         phase_s[key] = time.perf_counter() - t0
+        mem_after[key] = torch.cuda.memory_allocated() / 2**30
         return res
 
     t0 = time.perf_counter()
@@ -901,18 +1086,21 @@ def main():
                 continue
             print(f"    {k.name}: " + ln.strip(), flush=True)
 
+    held = {}  # final vorticities (and 11a's problem) for phase 11
     sl2, logged2 = phase(
         "cavity", "[3] 2D main path: 384x384 cavity, 3 steps",
         lambda: phase_main(torch, stencil, k2,
                            lambda: CavityProblem(cavity_config(384),
                                                  dtype=F32),
-                           "cavity", out))
+                           "cavity", out, extra=keep_run(held, "cavity")))
     sl3, logged3 = phase(
         "channel3d", "[4] 3D main path: channel3d 32x32x80, 3 steps",
         lambda: phase_main(torch, stencil, k3,
                            lambda: UniformFlowProblem(channel3d_config(),
                                                       dtype=F32),
-                           "channel3d", out, extra=channel_extra(torch)))
+                           "channel3d", out,
+                           extra=keep_run(held, "channel3d",
+                                           channel_extra(torch))))
     rows2 = phase("kernel_check_2d",
                   "[5a] stencil2d vs plain version at the cavity's shapes, "
                   "beside its first design (v1)",
@@ -955,7 +1143,6 @@ def main():
         "breakdown", "[9] stencil2d cost breakdown (its own path): "
         "modes vs plain, then timed",
         lambda: phase_breakdown(torch, stencil, out))
-    held = {}
     sl10, logged10 = phase(
         "parity", "[10a] parity leg: 384x384 cavity, float64 refined by "
         "kle.solve_ir to 1e-8, float32 inner solves, 3 steps",
@@ -987,24 +1174,33 @@ def main():
           "[10e] stencil2d vs plain version at the parity leg's shapes",
           lambda: phase_parity_kernels(torch, stencil, k2, logged10,
                                        sl10["stencil_launches"], out))
+    sl11a, sl11c = phase_ws_legs(torch, stencil, phase, held, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
+    print("GiB allocated after each phase: " + json.dumps(mem_after),
+          flush=True)
 
+    ws2 = {"11a": sl11a["stencil_launches"],
+           "11b": out["ws_scan"]["stencil_launches"]}
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
-                        + sl10["stencil_launches"],
+                        + sl10["stencil_launches"] + sum(ws2.values()),
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
                         parity_leg_launches=sl10["launches_by_instance"],
                         parity_leg_max_abs_err=max(
                             r["max_abs_err"]
-                            for r in out["parity_kernels"]["shapes"])),
-        main_path_entry(k3, rows3, sl3["stencil_launches"],
+                            for r in out["parity_kernels"]["shapes"]),
+                        ws_leg_launches=ws2),
+        main_path_entry(k3, rows3, sl3["stencil_launches"]
+                        + sl11c["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",
-                        out["stencil3d_v1_launches"]),
+                        out["stencil3d_v1_launches"],
+                        ws_leg_launches={"11c": sl11c["stencil_launches"]}),
         breakdown,
     ]}
-    out.update(phase_s=phase_s, device=torch.cuda.get_device_name(0),
+    out.update(phase_s=phase_s, allocated_after_gib=mem_after,
+               device=torch.cuda.get_device_name(0),
                nvidia_smi=smi)
     print(json.dumps({"results": out}), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -34,10 +34,14 @@ class CustomFuncProblem(FreeSlipProblem):
             self._gshape(self.dim))
 
     def vort_bc(self, t, vort):
-        """Clamp boundary vorticity (blocked layout) to the exact field."""
-        exact = self._blk(self.vort_fn(self._coords, self.nu, t).reshape(
-            self._gshape(self.dim_w)))
-        m = self.bc_vort_mask_b
+        """Clamp boundary vorticity (grid or blocked layout) to the exact
+        field."""
+        exact = self.vort_fn(self._coords, self.nu, t).reshape(
+            self._gshape(self.dim_w))
+        if vort.dim() > 1 and vort.shape != exact.shape:  # blocked layout
+            exact, m = self._blk(exact), self.bc_vort_mask_b
+        else:
+            m = self.bc_vort_mask
         return vort * (1.0 - m) + exact * m
 
     def initial_vorticity(self):

@@ -7,14 +7,16 @@ mu}, domain {ngl, box-mesh {nelem, lower, upper}}, time-solver
 boundary-conditions, kle-rtol, kle-maxiter, multigrid, and the
 mixed-precision refinement (kle-refine, kle-inner-rtol,
 kle-adaptive-inner: float64 state, float32 multigrid-CG inner solves,
-kle.solve_ir; ignored under float32, as in the reference). Warm-start
-extrapolation and GMRES raise NotImplementedError here, for every
-problem.
+kle.solve_ir; ignored under float32, as in the reference) and
+kle-ws-extrapolate (cross-step warm-start extrapolation,
+solvers/rk.py make_ws_state). GMRES raises NotImplementedError here,
+for every problem.
 
 Solver state (vorticity, velocity, CG and multigrid internals) lives in
 the blocked layout of ops/conv.py; grid and flat layouts appear only at
-the API boundary. ``device=None`` means ``"cuda"``; without a card the
-constructor raises unless the caller passes ``device="cpu"``.
+the API boundary (solve_kle, transport_rhs and the run's results).
+``device=None`` means ``"cuda"``; without a card the constructor raises
+unless the caller passes ``device="cpu"``.
 """
 
 import logging
@@ -29,14 +31,10 @@ from pynama_tpu_torch.kle import (build_kle_system, build_operators, ns_rhs,
                                   solve_ir)
 from pynama_tpu_torch.mesh.structured import BoxMesh
 from pynama_tpu_torch.ops import conv
-from pynama_tpu_torch.solvers.rk import make_bs5_stepper
+from pynama_tpu_torch.solvers.rk import (aux_map, make_bs5_stepper,
+                                         make_ws_state, ws_aux_vel)
 
 logger = logging.getLogger("pynama_tpu_torch")
-
-# config keys of the reference whose code paths are not ported yet
-_NOT_PORTED = {
-    "kle-ws-extrapolate": "cross-step warm-start extrapolation",
-}
 
 
 class BaseProblem:
@@ -61,10 +59,6 @@ class BaseProblem:
         if domain.get("gmsh-file"):
             raise NotImplementedError("Gmsh (unstructured) meshes are not "
                                       "ported yet (ROADMAP.md queue 1)")
-        for key, what in _NOT_PORTED.items():
-            if config.get(key):
-                raise NotImplementedError(f"'{key}': {what} is not ported "
-                                          "yet (ROADMAP.md queue 1)")
         if str(config.get("kle-solver", "cg")).lower() != "cg":
             raise NotImplementedError("'kle-solver: gmres' is not ported yet "
                                       "(ROADMAP.md queue 1)")
@@ -102,6 +96,11 @@ class BaseProblem:
         self.kle_inner_rtol = float(config.get("kle-inner-rtol", 1e-4))
         self.kle_adaptive_inner = bool(config.get("kle-adaptive-inner",
                                                   True))
+        # each RK stage warm-starts its KLE solve from the linear-in-time
+        # extrapolation of its own slot's last two accepted solutions
+        # (solvers/rk.py), at the cost of 2*(stages-1) kept velocities
+        self.kle_ws_extrapolate = bool(config.get("kle-ws-extrapolate",
+                                                  False))
 
         bc = config.get("boundary-conditions")
         if bc is not None:
@@ -126,7 +125,8 @@ class BaseProblem:
         raise NotImplementedError
 
     def vort_bc(self, t, vort):
-        """Clamp boundary vorticity (blocked layout); none by default."""
+        """Clamp boundary vorticity (grid or blocked layout); none by
+        default."""
         return vort
 
     def initial_vorticity(self):
@@ -205,23 +205,31 @@ class BaseProblem:
 
         return norm
 
+    def _is_blocked(self, x, k):
+        return x.dim() > 1 and tuple(x.shape) == self._bshape(k)
+
+    def _to_solver(self, x, k):
+        """A blocked, grid or flat field of k components per node in the
+        blocked layout."""
+        if self._is_blocked(x, k):
+            return x
+        if x.dim() == 1:
+            x = x.reshape(self._gshape(k))
+        return self._blk(x)
+
+    def _restorer(self, vort):
+        """The map from the blocked layout back to vort's layout."""
+        if self._is_blocked(vort, self.dim_w):
+            return lambda xb: xb
+        if vort.dim() == 1:
+            return lambda xb: self._unblk(xb).reshape(-1)
+        return self._unblk
+
     def _kle_layout(self, vort, x0):
-        """Convert solve inputs to the blocked layout; return a restorer."""
-        if vort.dim() > 1 and tuple(vort.shape) == self._bshape(self.dim_w):
-            return vort, x0, (lambda x: x)
-        flat = vort.dim() == 1
-        if flat:
-            vort = vort.reshape(self._gshape(self.dim_w))
-        vort_b = self._blk(vort)
-        x0_b = None
-        if x0 is not None:
-            if x0.dim() == 1:
-                x0 = x0.reshape(self._gshape(self.dim))
-            x0_b = self._blk(x0) if tuple(x0.shape) != self._bshape(
-                self.dim) else x0
-        if flat:
-            return vort_b, x0_b, (lambda xb: self._unblk(xb).reshape(-1))
-        return vort_b, x0_b, self._unblk
+        """Convert solve inputs to the blocked layout; return a restorer
+        to vort's layout."""
+        x0_b = None if x0 is None else self._to_solver(x0, self.dim)
+        return self._to_solver(vort, self.dim_w), x0_b, self._restorer(vort)
 
     def setup_preconditioner(self):
         """Geometric-multigrid V-cycles (one per mask); Jacobi-CG under
@@ -289,15 +297,17 @@ class BaseProblem:
         return vel, vel
 
     def transport_rhs(self, t, vort, vel_ws):
-        """d(vort)/dt and the next warm-start aux; blocked state in and out."""
-        if tuple(vort.shape) != self._bshape(self.dim_w):
-            raise ValueError(f"transport_rhs takes blocked vorticity "
-                             f"{self._bshape(self.dim_w)}, got "
-                             f"{tuple(vort.shape)}")
-        vort = self.vort_bc(t, vort)
+        """d(vort)/dt and the next warm-start aux (a velocity or a tuple
+        of velocities). Blocked vorticity passes straight through; grid
+        or flat vorticity, with its aux in the same layout, is converted
+        to blocked on the way in, and the RHS and the aux come back in
+        the caller's layout."""
+        restore = self._restorer(vort)
+        vort = self.vort_bc(t, self._to_solver(vort, self.dim_w))
+        vel_ws = aux_map(lambda v: self._to_solver(v, self.dim), vel_ws)
         vel, aux = self._kle_solve_aux(t, vort, vel_ws)
         f = ns_rhs(self.operators, vel, self.mu, self.rho, self.dim)
-        return f, aux
+        return restore(f), aux_map(restore, aux)
 
     def _aux_vel(self, aux):
         return aux[-1] if isinstance(aux, tuple) else aux
@@ -308,18 +318,23 @@ class BaseProblem:
 
         callback(n, t, dt, vort_grid, vel_grid) runs after each accepted
         step. Returns (vort flat, t, steps); sets self.vort / self.vel.
+        Under kle-ws-extrapolate the aux is the slot history, made after
+        the initial RHS (which gives the aux its steady structure).
         """
         if not self._setup_done:
             raise RuntimeError("call setup() before run()")
+        ws = self.kle_ws_extrapolate
         step = make_bs5_stepper(self.transport_rhs, atol=self.ts_atol,
                                 rtol=self.ts_rtol,
                                 wlte_norm=self._wlte_norm(),
-                                max_dt=self.ts_max_dt)
+                                max_dt=self.ts_max_dt, ws_extrapolate=ws)
         vort = self._blk(self.initial_vorticity())
         vel = self._blk(self.zero_vel())
         t = self.t_start
         dt = self.dt0
         f1, vel = self.transport_rhs(t, vort, vel)
+        if ws:
+            vel = make_ws_state(vel, t)
         n = 0
         steps = max_steps if max_steps is not None else self.max_steps
         while t < self.t_end - 1e-14 and n < steps:
@@ -328,8 +343,9 @@ class BaseProblem:
                 res.f_new
             n += 1
             if callback is not None:
+                aux = ws_aux_vel(vel) if ws else vel
                 callback(n, t, dt, self._unblk(vort),
-                         self._unblk(self._aux_vel(vel)))
+                         self._unblk(self._aux_vel(aux)))
         # public attributes stay flat (interleaved dofs) at the API boundary
         self.vort = self._unblk(vort).reshape(-1)
         self.vel = self._unblk(self.solve_kle(t, vort)).reshape(-1)

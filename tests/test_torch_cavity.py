@@ -53,7 +53,7 @@ def test_cavity_run_matches_reference():
 
 def test_unported_configs_and_missing_cuda_raise():
     cfg = cavity_config()
-    for key, val in (("kle-ws-extrapolate", True), ("kle-solver", "gmres")):
+    for key, val in (("kle-solver", "gmres"),):
         with pytest.raises(NotImplementedError):
             CavityProblem({**cfg, key: val}, device="cpu")
     # 7x7 needs a padded (fictitious-domain) multigrid jump

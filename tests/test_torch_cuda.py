@@ -3,8 +3,10 @@ every instance and K split, their first designs, their launch counts,
 bitwise repeats and graph replays, and the 2D and 3D paths never taking
 the plain version; the refined (kle-refine) solve through the kernels
 against the plain version, its inner solves on the float32 instances;
-the breakdown kernel in every mode against its plain version, and under
-a CUDA graph.
+the warm-start extrapolation (kle-ws-extrapolate) through the kernels
+against the plain version, its scan attempt against its stepper, and
+its history on the card; the breakdown kernel in every mode against its
+plain version, and under a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -411,6 +413,98 @@ def test_solve_ir_inner_solve_launches_float32_only(cuda):
     for key, n in stencil.KERNEL.shapes.items():
         by_dtype[key[2]] += n
     assert by_dtype["float32"] > 0 and by_dtype["float64"] > 0, by_dtype
+
+
+def ws_cavity(nelem):
+    """A float32 cavity with kle-ws-extrapolate on the card, stepping at
+    a fixed dt of 5e-5 (every attempt accepted)."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    cfg = {
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [nelem, nelem]}},
+        "material-properties": {"rho": 1.0, "mu": 0.01},
+        "time-solver": {"end-time": 100.0, "dt0": 5e-5, "max-dt": 5e-5,
+                        "atol": 1e12, "rtol": 1e12},
+        "boundary-conditions": {"no-slip": {"up": [1.0, 0.0]}},
+        "kle-rtol": 1e-5,
+        "kle-ws-extrapolate": True,
+    }
+    return CavityProblem(cfg, dtype=torch.float32).setup()
+
+
+def test_ws_cavity_kernels_match_plain(cuda, monkeypatch):
+    """3 steps with ws (step 3 extrapolates) through the kernels and with
+    the plain version forced."""
+    out = {}
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(stencil, "conv_blocked",
+                                stencil.conv_blocked_plain)
+        before = stencil.KERNEL.launches
+        vort, t, n = ws_cavity(16).run(max_steps=3)
+        assert n == 3 and torch.isfinite(vort).all()
+        out[mode] = vort, stencil.KERNEL.launches - before
+    (vk, lk), (vp, lp) = out["kernel"], out["plain"]
+    assert lk > 0 and lp == 0
+    err = float(torch.linalg.norm(vk - vp) / torch.linalg.norm(vp))
+    assert err <= 1e-4, err
+
+
+def ws_steps(p, make_step, steps=3):
+    """``steps`` fixed-dt steps of ``make_step(rhs)`` with ws from the
+    initial RHS; returns the final vorticity (blocked) and history."""
+    from pynama_tpu_torch.solvers.rk import make_ws_state
+
+    w, vel = p._blk(p.initial_vorticity()), p._blk(p.zero_vel())
+    t = 0.0
+    f1, vel = p.transport_rhs(t, w, vel)
+    st = make_ws_state(vel, t)
+    step = make_step(p.transport_rhs)
+    for _ in range(steps):
+        res = step(w, t, 5e-5, st, f1, 100.0)
+        w, t, st, f1 = res.y, res.t, res.aux, res.f_new
+    assert abs(t - steps * 5e-5) < 1e-15
+    return w, st
+
+
+def test_ws_scan_attempt_matches_stepper(cuda):
+    """bench.py's step (the host stepper around the scan attempt) against
+    make_bs5_stepper, both with ws, on the card: both controllers run
+    the scan attempt and accept every attempt here, so the trajectories
+    agree to the KLE tolerance."""
+    from pynama_tpu_torch.solvers.rk import (make_attempt_host_stepper,
+                                             make_bs5_scan_attempt,
+                                             make_bs5_stepper)
+
+    kw = dict(atol=1e12, rtol=1e12, ws_extrapolate=True)
+    p = ws_cavity(16)
+    w1, st1 = ws_steps(p, lambda rhs: make_bs5_stepper(rhs, **kw))
+    w2, st2 = ws_steps(p, lambda rhs: make_attempt_host_stepper(
+        make_bs5_scan_attempt(rhs, **kw)))
+    err = float(torch.linalg.norm(w1 - w2) / torch.linalg.norm(w1))
+    assert err <= 1e-4, err
+    for a, b in zip(st1[0] + st1[1], st2[0] + st2[1]):
+        e = float(torch.linalg.norm(a - b) / torch.linalg.norm(a))
+        assert e <= 1e-4, e
+    assert st1[2:] == st2[2:]
+
+
+def test_ws_history_stays_on_card_in_state_dtype(cuda):
+    """Every slot stack of the history lies on the card in the state's
+    dtype, with one slot per derivative stage; the step times stay
+    Python floats."""
+    from pynama_tpu_torch.solvers.rk import BS5_STAGES, make_bs5_stepper
+
+    p = ws_cavity(8)
+    w, st = ws_steps(p, lambda rhs: make_bs5_stepper(
+        rhs, atol=1e12, rtol=1e12, ws_extrapolate=True), steps=2)
+    assert w.device.type == "cuda" and w.dtype == torch.float32
+    H1, H2, t_prev, t_pp = st
+    assert isinstance(t_prev, float) and isinstance(t_pp, float)
+    assert len(H1) == len(H2) == 2  # the cavity's (vel_fs, vel) pair
+    for h in H1 + H2:
+        assert h.device.type == "cuda" and h.dtype == torch.float32
+        assert h.shape == (BS5_STAGES - 1,) + p._bshape(p.dim)
 
 
 # fill is a copy; highest: float32 sums in another order; default: against

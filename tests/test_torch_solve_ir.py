@@ -165,8 +165,8 @@ def test_refined_inner_solves_are_float32(problem, monkeypatch):
 
 
 def test_refine_config_semantics():
-    """float32 ignores kle-refine (as the reference does); the keys not
-    ported still raise with it."""
+    """float32 ignores kle-refine (as the reference does); the key not
+    ported still raises with it, and kle-ws-extrapolate is read."""
     cfg = {**refine_config(), "kle-rtol": 1e-5}
     plain = {k: v for k, v in cfg.items() if k != "kle-refine"}
     runs = []
@@ -179,6 +179,8 @@ def test_refine_config_semantics():
     assert torch.equal(runs[0], runs[1])
     q = RefCavity(cfg, dtype=jnp.float32)
     assert not q._refine
-    for key, val in (("kle-ws-extrapolate", True), ("kle-solver", "gmres")):
+    for key, val in (("kle-solver", "gmres"),):
         with pytest.raises(NotImplementedError):
             CavityProblem({**cfg, key: val}, device="cpu")
+    assert CavityProblem({**cfg, "kle-ws-extrapolate": True},
+                         device="cpu").kle_ws_extrapolate
