@@ -81,7 +81,36 @@ Phases, each timed; any failure exits non-zero:
    11c UniformFlowProblem(cfg).setup().run(max_steps=3) on channel3d
        with ws on, against phase 4;
    11d a 16x16 cavity with ws on through the kernel and with the plain
-       version forced (vorticities within 1e-4).
+       version forced (vorticities within 1e-4);
+12. the immersed-boundary path (ImmersedBoundaryProblem and
+   ImmersedBoundaryDynamicProblem, float64 state, stencil2d's float64
+   instance through every KLE solve and its multigrid V-cycle), each
+   run failing unless the vorticity is finite, the slip at the body
+   max |H u - U_body| < 1e-6, the last cd > 0, and the final velocity's
+   grid layout holds (the port's blocked <-> grid converters equal a
+   reshape written from the layout's definition, and every boundary node
+   found by the mesh's numbering holds the far field within 1e-12 u_ref;
+   the slip alone cannot show a swapped layout, which the correction
+   would enforce just as well):
+   12a configs/ibm-static.yaml as shipped (48x48 Q2 on [-3,3]^2, Re 10,
+       kle-rtol 1e-10), 3 steps through phase_main, with the flux-CG
+       iterations of every post-step and stencil2d's launches by
+       instance and dtype; then the same run again under torch.cuda's
+       sync debug mode: host syncs per step, and whether the vorticity
+       is bitwise equal to the first run's;
+   12b configs/ibm-dynamic.yaml as shipped (48x48 on [-4,4]^2, Re 140),
+       3 steps; the body must have moved;
+   12c the Re-40 regression geometry of tests/test_ibm_physics.py
+       (144x96 Q2 on [-6,12]x[-6,6], 55,777 nodes, kle-rtol 1e-8),
+       3 steps: the first non-square 2D grid (25x37 blocks);
+   12d tests/test_ibm.py's ibm_config(nelem=16) through the kernel and
+       with the plain version forced, 3 steps: vorticity within 1e-8,
+       the same steps, t within 1e-9 (the adaptive dt follows wlte, as
+       wlte^(-1/5)), the last cd within 1e-6;
+   12e stencil2d against its plain version at every shape 12a-12c
+       logged (float64, 1e-12), timed as device time, and four
+       bitwise-equal launches at the non-square fine shape and at the
+       most-split float64 shape.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -110,6 +139,50 @@ BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
 SAME_DESIGN_GAP = 0.25
 # phase 11: a ws leg's final vorticity against its ws-off phase's
 WS_LIMIT = 1e-4
+# phase 12: the slip at the body after the correction (tests/test_ibm.py's
+# bound), and 12d's kernel-vs-plain limits (vorticity, last cd)
+SLIP_LIMIT = 1e-6
+# the final velocity's boundary nodes against the far field, over u_ref:
+# Dirichlet dofs that the KLE and the correction leave as they are
+LAYOUT_LIMIT = 1e-12
+IBM_PLAIN_LIMIT = 1e-8
+IBM_CD_LIMIT = 1e-6
+# the adaptive dt goes as wlte^(-1/5): kernel and plain runs whose states
+# differ by IBM_PLAIN_LIMIT end their steps that far apart over ~5 and more
+IBM_T_LIMIT = 1e-9
+# configs/ibm-static.yaml and configs/ibm-dynamic.yaml as shipped (copied:
+# the card's Python may have no yaml; tests/test_torch_ibm_dynamic.py
+# holds the copies equal to the files)
+IBM_CONFIGS = {
+    "ibm-static": {
+        "name": "ibm-static", "save-dir": "run-ibm-static",
+        "save-n-steps": 5,
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [48, 48],
+                                          "lower": [-3, -3],
+                                          "upper": [3, 3]}},
+        "boundary-conditions": {"constant": {"re": 10, "direction": 0,
+                                             "longRef": "1"}},
+        "bodies": [{"type": "circle", "vel": "static", "radius": 0.5,
+                    "center": [0, 0]}],
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "time-solver": {"max-steps": 100, "start-time": 0, "end-time": 120,
+                        "dt0": 0.01},
+    },
+    "ibm-dynamic": {
+        "name": "ibm-dynamic", "save-dir": "run-ibm-dynamic",
+        "save-n-steps": 10,
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [48, 48],
+                                          "lower": [-4, -4],
+                                          "upper": [4, 4]}},
+        "bodies": [{"type": "circle", "vel": "dynamic", "radius": 0.5,
+                    "center": [0, 0]}],
+        "boundary-conditions": {"constant": {"re": 140, "direction": 0,
+                                             "longRef": "1"}},
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "time-solver": {"max-steps": 1000, "start-time": 0, "end-time": 300,
+                        "dt0": 0.005},
+    },
+}
 
 
 def cavity_config(nelem):
@@ -196,6 +269,46 @@ def taylor_green3d_config():
                         "atol": 1e12, "rtol": 1e12},
         "kle-rtol": 1e-5,
         "kle-maxiter": 4000,
+    }
+
+
+def ibm_re40_config():
+    """tests/test_ibm_physics.py's _cfg() (copied; no max-dt, float64
+    state, no kle-refine): the static cylinder at Re 40 on 144x96 Q2
+    elements of [-6,12]x[-6,6] (55,777 nodes), rho 1, mu 0.025,
+    kle-rtol 1e-8."""
+    return {
+        "name": "cyl-re40-regression",
+        "material-properties": {"rho": 1.0, "mu": 0.025},
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [144, 96],
+                                          "lower": [-6, -6],
+                                          "upper": [12, 6]}},
+        "boundary-conditions": {"constant": {"re": 40, "direction": 0,
+                                             "longRef": "1"}},
+        "bodies": [{"type": "circle", "vel": "static", "radius": 0.5,
+                    "center": [0, 0]}],
+        "time-solver": {"start-time": 0, "end-time": 40.0,
+                        "max-steps": 500, "dt0": 0.01},
+        "kle-rtol": 1e-8,
+    }
+
+
+def ibm_small_config(nelem):
+    """tests/test_ibm.py's ibm_config(nelem) (copied): a static
+    cylinder at Re 20 on [-3,3]^2, kle-rtol 1e-10."""
+    return {
+        "name": "ibm-test",
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [nelem, nelem],
+                                          "lower": [-3, -3],
+                                          "upper": [3, 3]}},
+        "time-solver": {"start-time": 0, "end-time": 1.0, "max-steps": 100,
+                        "dt0": 0.01},
+        "boundary-conditions": {"constant": {"re": 20.0, "direction": 0,
+                                             "longRef": "1"}},
+        "bodies": [{"type": "circle", "vel": "static", "radius": 0.5,
+                    "center": [0, 0]}],
+        "kle-rtol": 1e-10,
     }
 
 
@@ -344,8 +457,6 @@ def phase_kernel_design(torch, stencil, kern, rows, out):
     """Phase 5a's or 5b's second half: each instance's registers and
     static SASS counts, and bitwise-equal repeat launches at the busiest
     fine shape and at the most-split coarse shape."""
-    import numpy as np
-
     from pynama_tpu_torch.scripts import stencil_breakdown as sb
 
     regs = ptxas_registers(kern.build_log, sb.instance_name)
@@ -364,24 +475,32 @@ def phase_kernel_design(torch, stencil, kern, rows, out):
     if coarse["plan"]["split"] < 2:
         fail(f"{kern.name}: no logged shape splits K, so none checks the "
              "split")
-    repeats = []
-    for r in (fine, coarse):
-        xs, ws = tuple(r["x"]), tuple(r["W"])
-        rng = np.random.default_rng(11)
-        x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32,
-                            device="cuda")
-        W = torch.as_tensor(rng.normal(size=ws), dtype=torch.float32,
-                            device="cuda")
-        first = kern(x, W)
-        same = all(bool(torch.equal(kern(x, W), first)) for _ in range(3))
-        torch.cuda.synchronize()
-        repeats.append({"x": r["x"], "W": r["W"], "plan": r["plan"],
-                        "bitwise_equal": same})
-        print(f"  x {xs} W {ws}, split {r['plan']['split']}: 4 launches "
-              f"bitwise equal: {same}", flush=True)
-        if not same:
-            fail(f"{kern.name} is not deterministic at x {xs}, W {ws}")
+    repeats = [repeat_bitwise(torch, kern, tuple(r["x"]), tuple(r["W"]),
+                              "float32") for r in (fine, coarse)]
     out[f"{kern.name}_design"] = {"instances": design, "repeats": repeats}
+
+
+def repeat_bitwise(torch, kern, xs, ws, name):
+    """Four launches of ``kern`` on the same seeded inputs of a shape in
+    dtype ``name``; fails unless they agree bit for bit."""
+    import numpy as np
+
+    dtype = getattr(torch, name)
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=dtype, device="cuda")
+    W = torch.as_tensor(rng.normal(size=ws), dtype=dtype, device="cuda")
+    first = kern(x, W)
+    same = all(bool(torch.equal(kern(x, W), first)) for _ in range(3))
+    torch.cuda.synchronize()
+    p = kern.plan(xs, ws, dtype)
+    plan = {"instance": p.instance, "split": p.split, "blocks": p.blocks,
+            "vec": p.vec, "useful_positions": p.useful_positions}
+    print(f"  x {xs} W {ws} {name}, instance {p.instance}, split {p.split}: "
+          f"4 launches bitwise equal: {same}", flush=True)
+    if not same:
+        fail(f"{kern.name} is not deterministic at x {xs}, W {ws}, {name}")
+    return {"x": list(xs), "W": list(ws), "dtype": name, "plan": plan,
+            "bitwise_equal": same}
 
 
 def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
@@ -474,10 +593,13 @@ def channel_extra(torch):
 
 
 def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
-                        exact_limit=None, limit=1e-4):
+                        exact_limit=None, limit=1e-4, t_rtol=0.0):
     """One small run through the kernel and one with the plain version
-    forced; the vorticities must agree within ``limit`` (and, with
-    exact_limit, the velocity must match the problem's exact field)."""
+    forced; the vorticities must agree within ``limit`` and the final
+    times within ``t_rtol`` (0: equal; an adaptive dt differs in its last
+    bits when wlte does). With exact_limit, the velocity must match the
+    problem's exact field. Returns the kernel run's and the plain run's
+    problems."""
     runs = {}
     for mode in ("kernel", "plain"):
         before = kern.launches
@@ -505,13 +627,16 @@ def phase_plain_compare(torch, stencil, kern, make_problem, key, out,
         msg += f"; velocity rel err vs exact {err:.3e} (limit {exact_limit})"
     out[key] = res
     print(msg, flush=True)
-    if nk != np_ or tk != tp or lk <= 0 or lp != 0:
-        fail(f"{key}: kernel and plain runs differ in steps or launches")
+    res["t_rel_diff"] = abs(tk - tp) / abs(tp)
+    if nk != np_ or res["t_rel_diff"] > t_rtol or lk <= 0 or lp != 0:
+        fail(f"{key}: kernel and plain runs differ in steps, t ({tk!r} vs "
+             f"{tp!r}) or launches")
     if not rel <= limit:
         fail(f"{key}: vorticity kernel vs plain: {rel:.3e} > {limit:g}")
     if exact_limit is not None and not res["vel_rel_err_vs_exact"] < \
             exact_limit:
         fail(f"{key}: velocity error vs exact {res['vel_rel_err_vs_exact']}")
+    return pk, runs["plain"][0]
 
 
 def launch_split(torch, kern, shapes):
@@ -623,9 +748,10 @@ def phase_refine3d(torch, kern, make_problem, out):
              "both must be > 0")
 
 
-def phase_parity_kernels(torch, stencil, kern, logged, launches, out):
-    """Phase 10e: the kernel against its plain version at every shape the
-    parity leg logged, with device time (the calls captured in a CUDA
+def phase_logged_kernels(torch, stencil, kern, logged, launches, key,
+                         out):
+    """Phases 10e and 12e: the kernel against its plain version at every
+    shape a leg logged, with device time (the calls captured in a CUDA
     graph), the plain version's time and the bound; the leg's launches
     and device time by instance (launches x device time per shape)."""
     from pynama_tpu_torch.scripts.stencil_sweep import graph_ms
@@ -652,13 +778,14 @@ def phase_parity_kernels(torch, stencil, kern, logged, launches, out):
               f"{i}: rel err {rel_err:.2e}, device {dev:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {bound:.4f} ms", flush=True)
     if sum(e["launches"] for e in inst.values()) != launches:
-        fail(f"phase 10e's shapes hold {inst}, phase 10a counted "
+        fail(f"{key}: the logged shapes hold {inst}, the leg counted "
              f"{launches} launches")
     for i, e in sorted(inst.items()):
         print(f"  instance {i}: {e['launches']} launches x device time "
               f"per shape = {e['device_ms']:.1f} ms (setup, initial RHS, "
               "3 steps, final solve)", flush=True)
-    out["parity_kernels"] = {"shapes": rows, "by_instance": inst}
+    out[key] = {"shapes": rows, "by_instance": inst}
+    return rows
 
 
 def phase_profile(torch, kern, make_problem, sl, key, out):
@@ -871,6 +998,230 @@ def phase_ws_legs(torch, stencil, phase, held, out):
               lambda: CavityProblem({**cavity_config(16), **ws}, dtype=F32),
               "plain_compare_ws", out, limit=WS_LIMIT))
     return sl11a, sl11c
+
+
+def ibm_slip(p, t):
+    """max |H u - U_body| of a run's final corrected velocity at t."""
+    X, Ub = p._body_state(t)
+    nodes, weights = p.coupling.windows(X)
+    return float((p.coupling.interp(p.vel, nodes, weights) - Ub).abs().max())
+
+
+def grid_from_blocked(xb, P, npts):
+    """The blocked layout written out apart from the port's converters:
+    block (b1, b2) holds grid nodes (b1*P + i, b2*P + j), 0 <= i, j < P,
+    in channels (i, j, k); the grid is cropped to its npts."""
+    B1, B2, C = xb.shape
+    k = C // (P * P)
+    g = xb.reshape(B1, B2, P, P, k).permute(0, 2, 1, 3, 4)
+    return g.reshape(B1 * P, B2 * P, k)[:npts[0], :npts[1]]
+
+
+def ibm_layout(torch, p):
+    """Witnesses that the coupling read and wrote the velocity in the
+    grid layout, which the slip alone cannot show (the correction
+    enforces H u = U_body on whatever field it is given): the port's
+    blocked <-> grid converters agree bit for bit with grid_from_blocked
+    on the final velocity; every boundary node of the flat velocity,
+    found by the mesh's numbering (node = iy*npx + ix), holds the far
+    field exactly; and the field is not uniform (so the boundary test
+    could fail)."""
+    npts = tuple(reversed(p.mesh.npts))
+    grid = p.vel.reshape(npts + (p.dim,))
+    vb = p._blk(grid)
+    same = bool(torch.equal(
+        grid_from_blocked(vb, p._solver_ngl - 1, npts), grid)) and \
+        bool(torch.equal(p._unblk(vb), grid))
+    u_inf = torch.as_tensor(p.cte_value, dtype=grid.dtype,
+                            device=grid.device)
+    dev = (grid - u_inf).abs().amax(dim=-1)
+    edge = torch.cat([dev[0], dev[-1], dev[:, 0], dev[:, -1]])
+    return {"layout_converters_equal": same,
+            "boundary_minus_far_field": float(edge.max()),
+            "max_minus_far_field": float(dev.max())}
+
+
+def ibm_extra(torch, kern, key, held):
+    """A phase_main ``extra`` for phase 12's legs: the slip at the body,
+    the last cd, the flux-CG iterations of every post-step (the initial
+    one, then the step's and the force floor's, 2 a step), stencil2d's
+    launches by instance and dtype, and whether the body moved; keeps
+    (problem, vorticity) in held[key]."""
+    def extra(p, vort):
+        t = p.t_history[-1]
+        slip = ibm_slip(p, t)
+        cd = p.cd_history[-1][0]
+        flux = list(p.coupling.cg_iters)
+        inst, dtypes = launch_split(torch, kern, kern.shapes)
+        moved = float(abs(p.body.coords_at(t) - p.body.coords_at(0.0)).max())
+        layout = ibm_layout(torch, p)
+        res = {**layout, "slip": slip, "cd_history": p.cd_history,
+               "cl_history": p.cl_history, "cd_raw_history": p.cd_raw_history,
+               "dt_history": p.dt_history, "t_history": p.t_history,
+               "flux_cg_iters": flux,
+               "flux_cg_iters_per_post_step": sum(flux) / len(flux),
+               "lagrange_points": p.body.n_nodes, "body_moved": moved,
+               "launches_by_instance": inst, "launches_by_dtype": dtypes}
+        print(f"  slip max |Hu - U_body| {slip:.3e} (limit {SLIP_LIMIT:g}), "
+              f"cd {[c[0] for c in p.cd_history]}, dt {p.dt_history}; "
+              f"{p.body.n_nodes} Lagrange points, flux CG {flux} "
+              f"({res['flux_cg_iters_per_post_step']:.1f} per post-step); "
+              f"body moved {moved:.4g}; {kern.name} launches by instance "
+              f"{inst}, by dtype {dtypes}", flush=True)
+        print(f"  layout: converters equal to the grid definition "
+              f"{layout['layout_converters_equal']}; max |u - u_inf| on "
+              f"the boundary {layout['boundary_minus_far_field']:.3e} "
+              f"(limit {LAYOUT_LIMIT:g} u_ref), over the field "
+              f"{layout['max_minus_far_field']:.3e}", flush=True)
+        if not layout["layout_converters_equal"] or \
+                not layout["boundary_minus_far_field"] <= LAYOUT_LIMIT * p.u_ref or \
+                not layout["max_minus_far_field"] > 0.1 * p.u_ref:
+            fail(f"{key}: the velocity's grid layout: {layout}")
+        if not slip < SLIP_LIMIT:
+            fail(f"{key}: slip at the body {slip:.3e}")
+        if not cd > 0:
+            fail(f"{key}: last cd {cd} is not positive")
+        if p.body.is_moving and not moved > 0:
+            fail(f"{key}: the body did not move")
+        if dtypes["float64"] <= 0 or dtypes["float32"] != 0:
+            fail(f"{key}: {kern.name} launches by dtype {dtypes}; the "
+                 "float64 path must launch only the float64 instance")
+        held[key] = p, vort
+        return res
+    return extra
+
+
+def phase_ibm_repeat(torch, make_problem, held, out):
+    """12a's run again under torch.cuda's sync debug mode: the host syncs
+    of each step (every synchronizing call warns once), beside the reads
+    that the CG loops alone account for (2 + iterations a solve, KLE and
+    flux), and whether the vorticity, the CG iteration lists and the
+    force histories equal the first run's bit for bit."""
+    import warnings
+
+    import numpy as np
+
+    p0, vort0 = held.pop("ibm_static")
+    p = make_problem().setup()
+    marks = []
+
+    def callback(n, t, dt, vort, vel):
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        marks.append((syncs, len(p.cg_iters), len(p.coupling.cg_iters)))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        vort, t, n = p.run(max_steps=3, callback=callback)
+        torch.cuda.set_sync_debug_mode("default")
+    steps = list(zip([(0, 0, 0)] + marks, marks))
+    syncs = [b[0] - a[0] for a, b in steps]
+    cg_reads = [sum(2 + i for i in p.cg_iters[a[1]:b[1]])
+                + sum(2 + i for i in p.coupling.cg_iters[a[2]:b[2]])
+                for a, b in steps]
+    # the same windows, spread 4 times
+    X, _ = p._body_state(t)
+    nodes, weights = p.coupling.windows(X)
+    q = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(X.shape[0], 2)), dtype=p.dtype, device="cuda")
+    s0 = p.coupling.spread(q, nodes, weights, p.mesh.n_nodes)
+    spread_same = all(bool(torch.equal(
+        p.coupling.spread(q, nodes, weights, p.mesh.n_nodes), s0))
+        for _ in range(3))
+    res = {
+        "vort_bitwise_equal": bool(torch.equal(vort, vort0)),
+        "vort_max_abs_diff": float((vort - vort0).abs().max()),
+        "cg_iters_equal": p.cg_iters == p0.cg_iters,
+        "flux_cg_iters_equal": p.coupling.cg_iters == p0.coupling.cg_iters,
+        "cd_history_equal": p.cd_history == p0.cd_history,
+        "spread_repeats_bitwise_equal": spread_same,
+        "host_syncs_per_step": syncs, "cg_host_reads_per_step": cg_reads,
+        "t": t, "steps": n,
+    }
+    out["ibm_static_repeat"] = res
+    print(f"  repeat of 12a: vorticity bitwise equal "
+          f"{res['vort_bitwise_equal']} (max abs diff "
+          f"{res['vort_max_abs_diff']:.3e}), KLE CG lists equal "
+          f"{res['cg_iters_equal']}, flux CG lists equal "
+          f"{res['flux_cg_iters_equal']}, cd equal "
+          f"{res['cd_history_equal']}; spread x4 bitwise equal "
+          f"{spread_same}; host syncs per step (step 1 with the initial "
+          f"condition) {syncs}, of which the CG loops' reads {cg_reads}",
+          flush=True)
+    if n != 3 or not bool(torch.isfinite(vort).all()):
+        fail("12a repeat: not 3 steps, or the vorticity is not finite")
+
+
+def phase_ibm_legs(torch, stencil, phase, out):
+    """Phase 12 (see the module's docstring). Returns phase_main's
+    records of 12a, 12b and 12c and 12e's rows."""
+    from collections import Counter
+
+    from pynama_tpu_torch.cases.immersed import (
+        ImmersedBoundaryDynamicProblem, ImmersedBoundaryProblem)
+
+    k2, held = stencil.KERNEL, {}
+    legs = {
+        "ibm_static": ("[12a] ibm-static.yaml as shipped: 48x48, float64, "
+                       "3 steps", ImmersedBoundaryProblem,
+                       IBM_CONFIGS["ibm-static"]),
+        "ibm_dynamic": ("[12b] ibm-dynamic.yaml as shipped: 48x48, "
+                        "float64, 3 steps", ImmersedBoundaryDynamicProblem,
+                        IBM_CONFIGS["ibm-dynamic"]),
+        "ibm_re40": ("[12c] the Re-40 regression geometry: 144x96, "
+                     "float64, 3 steps", ImmersedBoundaryProblem,
+                     ibm_re40_config()),
+    }
+    records, logged = {}, Counter()
+    for key, (title, cls, cfg) in legs.items():
+        records[key], shapes = phase(
+            key, title,
+            lambda: phase_main(torch, stencil, k2, lambda: cls(cfg), key, out,
+                               extra=ibm_extra(torch, k2, key, held)))
+        logged.update(shapes)
+        if key == "ibm_static":
+            phase("ibm_static_repeat",
+                  "[12a] the same run again: bitwise equal? host syncs",
+                  lambda: phase_ibm_repeat(
+                      torch, lambda: cls(cfg), held, out))
+        held.clear()
+
+    def plain_compare_ibm():
+        pk, pp = phase_plain_compare(
+            torch, stencil, k2,
+            lambda: ImmersedBoundaryProblem(ibm_small_config(16)),
+            "plain_compare_ibm", out, limit=IBM_PLAIN_LIMIT,
+            t_rtol=IBM_T_LIMIT)
+        a, b = pk.cd_history[-1][0], pp.cd_history[-1][0]
+        rel = abs(a - b) / abs(b)
+        out["plain_compare_ibm"].update(last_cd=[a, b], last_cd_rel_diff=rel)
+        print(f"  last cd kernel {a!r} / plain {b!r}: rel diff {rel:.3e} "
+              f"(limit {IBM_CD_LIMIT:g})", flush=True)
+        if not rel <= IBM_CD_LIMIT:
+            fail(f"12d: last cd kernel vs plain {rel:.3e}")
+
+    phase("plain_compare_ibm",
+          "[12d] 16x16 IBM case, float64: kernel vs plain version on the "
+          "card", plain_compare_ibm)
+    launches = sum(r["stencil_launches"] for r in records.values())
+
+    def kernels_and_repeats():
+        rows = phase_logged_kernels(torch, stencil, k2, logged, launches,
+                                    "ibm_kernels", out)
+        fine = max((r for r in rows if r["x"][0] != r["x"][1]),
+                   key=lambda r: r["main_path_launches"]
+                   * _flops(r["x"], r["W"]))
+        split = max(rows, key=lambda r: k2.plan(
+            tuple(r["x"]), tuple(r["W"]), torch.float64).split)
+        out["ibm_kernels"]["repeats"] = [
+            repeat_bitwise(torch, k2, tuple(r["x"]), tuple(r["W"]),
+                           "float64") for r in (fine, split)]
+        return rows
+
+    rows = phase("ibm_kernels",
+                 "[12e] stencil2d vs plain version at the IBM legs' shapes",
+                 kernels_and_repeats)
+    return records, rows
 
 
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
@@ -1172,9 +1523,11 @@ def main():
               out))
     phase("parity_kernels",
           "[10e] stencil2d vs plain version at the parity leg's shapes",
-          lambda: phase_parity_kernels(torch, stencil, k2, logged10,
-                                       sl10["stencil_launches"], out))
+          lambda: phase_logged_kernels(torch, stencil, k2, logged10,
+                                       sl10["stencil_launches"],
+                                       "parity_kernels", out))
     sl11a, sl11c = phase_ws_legs(torch, stencil, phase, held, out)
+    sl12, rows12 = phase_ibm_legs(torch, stencil, phase, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),
@@ -1182,16 +1535,21 @@ def main():
 
     ws2 = {"11a": sl11a["stencil_launches"],
            "11b": out["ws_scan"]["stencil_launches"]}
+    ibm2 = {leg: sl12[key]["stencil_launches"] for leg, key in (
+        ("12a", "ibm_static"), ("12b", "ibm_dynamic"), ("12c", "ibm_re40"))}
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
-                        + sl10["stencil_launches"] + sum(ws2.values()),
+                        + sl10["stencil_launches"] + sum(ws2.values())
+                        + sum(ibm2.values()),
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
                         parity_leg_launches=sl10["launches_by_instance"],
                         parity_leg_max_abs_err=max(
                             r["max_abs_err"]
                             for r in out["parity_kernels"]["shapes"]),
-                        ws_leg_launches=ws2),
+                        ws_leg_launches=ws2, ibm_leg_launches=ibm2,
+                        ibm_leg_max_abs_err=max(
+                            r["max_abs_err"] for r in rows12)),
         main_path_entry(k3, rows3, sl3["stencil_launches"]
                         + sl11c["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",

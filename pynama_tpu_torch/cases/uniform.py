@@ -12,9 +12,14 @@ from pynama_tpu_torch.cases.base import FreeSlipProblem
 
 
 class UniformFlowProblem(FreeSlipProblem):
+    # the far-field velocity; a subclass's read_boundary_condition may set
+    # it, else it is the unit velocity along x
+    cte_value = None
+
     def __init__(self, config, dtype=torch.float64, device=None):
         super().__init__(config, dtype=dtype, device=device)
-        self.cte_value = (1.0, 0.0) if self.dim == 2 else (1.0, 0.0, 0.0)
+        if self.cte_value is None:
+            self.cte_value = (1.0, 0.0) if self.dim == 2 else (1.0, 0.0, 0.0)
 
     def setup_bc(self):
         super().setup_bc()

@@ -47,3 +47,12 @@ def run_state(vort, vel_pair, f1, t, dt, dtype=torch.float64, device=None):
     return (_t(vort, dtype, device),
             (_t(vel_fs, dtype, device), _t(vel, dtype, device)),
             _t(f1, dtype, device), float(t), float(dt))
+
+
+def ibm_windows(nodes, weights, dtype=torch.float64, device=None):
+    """The reference coupling's windows ``(nodes, weights)``
+    (``IBMCoupling.windows``) as the port's: int64 node ids and weights
+    of ``dtype``."""
+    return (torch.tensor(np.asarray(nodes), dtype=torch.int64,
+                         device=resolve_device(device)),
+            _t(weights, dtype, device))

@@ -5,8 +5,10 @@ the plain version; the refined (kle-refine) solve through the kernels
 against the plain version, its inner solves on the float32 instances;
 the warm-start extrapolation (kle-ws-extrapolate) through the kernels
 against the plain version, its scan attempt against its stepper, and
-its history on the card; the breakdown kernel in every mode against its
-plain version, and under a CUDA graph.
+its history on the card; the immersed-boundary path through the kernels
+against the plain version, and stencil2d's float64 instance at its
+non-square and 8-channel shapes; the breakdown kernel in every mode
+against its plain version, and under a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -510,6 +512,79 @@ def test_ws_history_stays_on_card_in_state_dtype(cuda):
 # fill is a copy; highest: float32 sums in another order; default: against
 # the plain version on TF32-rounded inputs, tensor-core sums in another order
 BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
+
+
+@pytest.mark.parametrize("xs,ws", [
+    ((25, 37, 128), (3, 3, 128, 128)),   # 144x96 Q2: the fine K apply
+    ((25, 37, 64), (3, 3, 64, 128)),     # its Rw
+    ((7, 10, 128), (3, 3, 128, 128)),    # an MG level of it
+    ((97, 145, 8), (5, 5, 8, 8)),        # its 8-channel patch layout
+    ((13, 13, 8), (5, 5, 8, 8)),
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel2d_float64_ibm_shapes_match_plain(cuda, xs, ws):
+    """The immersed-boundary path runs every KLE solve and V-cycle in
+    float64: instance 2 at the non-square Re-40 grid's shapes and at the
+    8-channel F-5 patch layouts."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float64, device=cuda)
+    W = torch.as_tensor(rng.normal(size=ws), dtype=torch.float64, device=cuda)
+    before = stencil.KERNEL.launches
+    y = stencil.conv_blocked(x, W)
+    torch.cuda.synchronize()
+    assert stencil.KERNEL.launches == before + 1
+    assert stencil.KERNEL.plan(xs, ws, torch.float64).instance == 2
+    ref = stencil.conv_blocked_plain(x, W)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-12, err
+
+
+def ibm_case(nelem):
+    """tests/test_ibm.py's ibm_config(nelem), float64, on the card."""
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+
+    cfg = {
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {"ngl": 3, "box-mesh": {"nelem": [nelem, nelem],
+                                          "lower": [-3, -3],
+                                          "upper": [3, 3]}},
+        "time-solver": {"start-time": 0, "end-time": 1.0, "dt0": 0.01},
+        "boundary-conditions": {"constant": {"re": 20.0, "direction": 0,
+                                             "longRef": "1"}},
+        "bodies": [{"type": "circle", "vel": "static", "radius": 0.5,
+                    "center": [0, 0]}],
+        "kle-rtol": 1e-10,
+    }
+    return ImmersedBoundaryProblem(cfg).setup()
+
+
+def test_ibm_kernels_match_plain(cuda, monkeypatch):
+    """2 steps of the 12x12 IBM case through the kernels and with the
+    plain version forced: the same steps, t within 1e-9, vorticity
+    within 1e-8, the last cd within 1e-6; the slip at the body below
+    1e-6 in both."""
+    out = {}
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(stencil, "conv_blocked",
+                                stencil.conv_blocked_plain)
+        before = stencil.KERNEL.launches
+        p = ibm_case(12)
+        vort, t, n = p.run(max_steps=2)
+        assert p.vel.device.type == "cuda" and torch.isfinite(vort).all()
+        X, Ub = p._body_state(t)
+        nodes, weights = p.coupling.windows(X)
+        slip = float((p.coupling.interp(p.vel, nodes, weights) - Ub)
+                     .abs().max())
+        assert slip < 1e-6, (mode, slip)
+        out[mode] = p, vort, t, n, stencil.KERNEL.launches - before
+    (pk, vk, tk, nk, lk), (pp, vp, tp, np_, lp) = out["kernel"], out["plain"]
+    # the adaptive dt follows wlte, as wlte^(-1/5)
+    assert lk > 0 and lp == 0 and nk == np_ == 2
+    assert abs(tk - tp) <= 1e-9 * tp, (tk, tp)
+    err = float(torch.linalg.norm(vk - vp) / torch.linalg.norm(vp))
+    assert err <= 1e-8, err
+    a, b = pk.cd_history[-1][0], pp.cd_history[-1][0]
+    assert abs(a - b) <= 1e-6 * abs(b), (a, b)
 
 
 @pytest.mark.parametrize("TR", sb.TILE_ROWS)
