@@ -110,17 +110,58 @@ Phases, each timed; any failure exits non-zero:
    12e stencil2d against its plain version at every shape 12a-12c
        logged (float64, 1e-12), timed as device time, and four
        bitwise-equal launches at the non-square fine shape and at the
-       most-split float64 shape.
+       most-split float64 shape;
+13. the command line: pynama_tpu_torch.run_case.main(argv) called in
+   this process (the CUDA device, the default), the working directory
+   and every save-dir a temporary directory, the launch counts reset
+   just before each leg's first call and read just after its last; a
+   line first says whether yaml, h5py and matplotlib are installed:
+   13a -case cavity, configs/cavity.yaml as shipped (30x30 Q2, float64,
+       7,442 velocity dofs), -max-steps 4 -opt save-n-steps=2: the
+       metrics file, the step-4 checkpoint (its vorticity bit for bit
+       the run's final one) and, where h5py is installed,
+       vec-data-00004.h5 (the same);
+   13b 13a's run to step 2 (-opt save-n-steps=2), then -resume from its
+       checkpoint to step 4:
+       a resumed cavity warm-starts both of its solves from the
+       checkpoint's one velocity (as the reference's), so the final
+       vorticity matches 13a's within CLI_RESUME_FACTOR x the KLE rtol,
+       not bit for bit (whether it is bitwise is reported);
+   13c full width: cavity_config(384) written as a YAML file and run
+       with -config <file> -case cavity -dtype float32, -max-steps 3
+       -opt save-n-steps=2, then resumed from the step-2 checkpoint to
+       step 3: within WS_LIMIT (1e-4, a warm-start change) of the
+       uninterrupted run, which must equal phase 3's bit for bit (the
+       same computation through the library); ms per step and the
+       seconds of each save (checkpoint, and XDMF where h5py is
+       installed); only float32 stencil2d launches;
+   13d -case ibm-static -max-steps 3 -opt save-n-steps=1, then a run to
+       step 2 resumed to step 3: the metrics hold cd, cl and strouhal,
+       and the resumed cd history is within IBM_CD_LIMIT (1e-6, 12d's)
+       of the uninterrupted one;
+   13e -case uniform -max-steps 1 -opt kle-solver=gmres
+       -opt multigrid=false: GMRES's iterations recorded, and the final
+       velocity within GMRES_CG_FACTOR x the KLE rtol of a CG solve of
+       the same system;
+   13f -case taylor-green -test kle (11 KLE solves at rtol 1e-13): each
+       error within KLE_ERR_RTOL of the reference's and falling, as in
+       its JSON; and -test chartkle -opt time-solver.max-steps=3;
+   13g stencil2d against its plain version at every shape 13a-13f
+       logged that no earlier phase checked, timed as device time.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import gc
+import importlib.util
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): float32 without
@@ -150,9 +191,8 @@ IBM_CD_LIMIT = 1e-6
 # the adaptive dt goes as wlte^(-1/5): kernel and plain runs whose states
 # differ by IBM_PLAIN_LIMIT end their steps that far apart over ~5 and more
 IBM_T_LIMIT = 1e-9
-# configs/ibm-static.yaml and configs/ibm-dynamic.yaml as shipped (copied:
-# the card's Python may have no yaml; tests/test_torch_ibm_dynamic.py
-# holds the copies equal to the files)
+# configs/ibm-static.yaml and configs/ibm-dynamic.yaml as shipped (copied;
+# tests/test_torch_ibm_dynamic.py holds the copies equal to the files)
 IBM_CONFIGS = {
     "ibm-static": {
         "name": "ibm-static", "save-dir": "run-ibm-static",
@@ -183,6 +223,28 @@ IBM_CONFIGS = {
                         "dt0": 0.005},
     },
 }
+
+
+# phase 13b: the resumed cavity's CG iterates differ from the
+# uninterrupted run's (both solves warm-started from one velocity); each
+# solve stops within the KLE rtol, and this many rtols bound what two
+# resumed steps leave in the vorticity
+CLI_RESUME_FACTOR = 100
+# phase 13e: GMRES against CG on the same system, in KLE rtols. GMRES
+# stops on the Jacobi-preconditioned residual, so its velocity lies within
+# cond(M A) x rtol of the system's solution: 17.2 rtols (1.72e-9) in a CPU
+# run of 13e's command, where a CG solve at rtol 1e-13 sat 3.4e-10 from
+# the uniform field and the GMRES one 1.65e-9
+GMRES_CG_FACTOR = 100
+# phase 13f: the reference's -test kle errors on configs/taylor-green.yaml
+# (python -m pynama_tpu.run_case -case taylor-green -test kle, float64 on
+# the CPU), one per viscous time; the port's within KLE_ERR_RTOL of each
+REF_KLE_ERRORS = [
+    0.031965392546448715, 0.030486371068300534, 0.026291236415390915,
+    0.014542267418449885, 0.005420017061559309, 0.0013611832349359992,
+    0.00023034561016683087, 2.626580401872379e-05, 2.0181287515284355e-06,
+    1.0448512116815584e-07, 3.6450831735457286e-09]
+KLE_ERR_RTOL = 1e-6
 
 
 def cavity_config(nelem):
@@ -975,7 +1037,8 @@ def phase_ws_legs(torch, stencil, phase, held, out):
                            "ws_cavity", out,
                            extra=keep_run(held, "ws_cavity", problem=True)))
     p11, vort11 = held.pop("ws_cavity")
-    compare_ws(torch, out, "ws_cavity", "cavity", vort11, held.pop("cavity"))
+    # phase 3's vorticity stays in held for phase 13c
+    compare_ws(torch, out, "ws_cavity", "cavity", vort11, held["cavity"])
     phase("ws_scan", "[11b] ws leg: bench.py's step (scan attempt + host "
           "stepper, ws on) on 11a's problem, 3 steps",
           lambda: phase_ws_scan(torch, stencil, k2, p11, vort11, out))
@@ -1222,6 +1285,333 @@ def phase_ibm_legs(torch, stencil, phase, out):
                  "[12e] stencil2d vs plain version at the IBM legs' shapes",
                  kernels_and_repeats)
     return records, rows
+
+
+@contextlib.contextmanager
+def cli_probe(torch):
+    """Phase 13's hooks around run_case.main calls: every problem
+    run_case.make_problem makes (its ``step_marks``: the host clock after
+    each accepted step, synchronized), and the seconds of every checkpoint
+    and XDMF save in ``saves``, as (kind, step, seconds). Restored on
+    exit."""
+    from pynama_tpu_torch import run_case
+    from pynama_tpu_torch.io import checkpoint
+
+    rec = {"problems": [], "saves": []}
+    make, save = run_case.make_problem, checkpoint.save_checkpoint
+    xdmf = None
+    if importlib.util.find_spec("h5py") is not None:
+        from pynama_tpu_torch.io import xdmf
+        save_fields = xdmf.XdmfWriter.save_fields
+
+    def timed(fn, kind):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            step = kw["step"] if kind == "checkpoint" else args[1]
+            rec["saves"].append((kind, step, time.perf_counter() - t0))
+            return res
+        return call
+
+    def make_marked(*args, **kw):
+        p = make(*args, **kw)
+        run, marks = p.run, []
+
+        def run_marked(callback=None, **kw):
+            def cb(*a):
+                if callback is not None:
+                    callback(*a)
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            return run(callback=cb, **kw)
+
+        p.run, p.step_marks = run_marked, marks
+        rec["problems"].append(p)
+        return p
+
+    run_case.make_problem = make_marked
+    checkpoint.save_checkpoint = timed(save, "checkpoint")
+    if xdmf is not None:
+        xdmf.XdmfWriter.save_fields = timed(save_fields, "xdmf")
+    try:
+        yield rec
+    finally:
+        run_case.make_problem = make
+        checkpoint.save_checkpoint = save
+        if xdmf is not None:
+            xdmf.XdmfWriter.save_fields = save_fields
+
+
+def run_cli_leg(torch, stencil, argvs):
+    """Each argv through run_case.main in this process, in order, the
+    launch counts set to 0 just before the first and read just after the
+    last. Returns ([(main's result, its problem, its saves)], stencil2d's
+    launches, its logged shapes, the seconds)."""
+    from collections import Counter
+
+    from pynama_tpu_torch import run_case
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = []
+    for argv in argvs:
+        print("  run_case " + " ".join(argv), flush=True)
+        with cli_probe(torch) as rec:
+            res = run_case.main(argv + ["-log", "WARNING"])
+            torch.cuda.synchronize()
+        if len(rec["problems"]) != 1:
+            fail(f"run_case {argv} made {len(rec['problems'])} problems")
+        calls.append((res, rec["problems"][0], rec["saves"]))
+    k2 = stencil.KERNEL
+    return calls, k2.launches, Counter(k2.shapes), time.perf_counter() - t0
+
+
+def rel_diff(torch, a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
+    """13a-13c; returns the legs' (launches, logged shapes)."""
+    import numpy as np
+    import yaml
+
+    from pynama_tpu_torch.io.checkpoint import load_checkpoint
+
+    legs = {}
+    d = os.path.join(tmp, "13a")
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        ["-case", "cavity", "-max-steps", "4", "-opt", "save-n-steps=2",
+         "-opt", f"save-dir={d}"]])
+    (metrics, pa, saves), = calls
+    with open(os.path.join(d, "cavity-metrics.yaml")) as f:
+        on_disk = yaml.safe_load(f)
+    ck = load_checkpoint(os.path.join(d, "checkpoint.npz"))
+    final = pa.vort.cpu().numpy()
+    dofs = pa.mesh.n_nodes * pa.dim
+    h5 = os.path.join(d, "vec-data-00004.h5")
+    h5_equal = None
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        with h5py.File(h5) as f:
+            h5_equal = bool(np.array_equal(f["fields/vorticity"][()], final))
+    elif os.path.exists(h5):
+        fail("13a: an HDF5 file without h5py")
+    res = {"velocity_dofs": dofs, "dtype": str(pa.dtype), "steps":
+           metrics["steps"], "metrics_on_disk": on_disk["steps"],
+           "checkpoint_step": ck["step"], "checkpoint_vort_bitwise":
+           bool(np.array_equal(ck["vort"], final)), "h5_vort_bitwise":
+           h5_equal, "saves": saves, "stencil_launches": n, "seconds": sec,
+           "kle_solves": len(pa.cg_iters), "step_ms": [
+               1e3 * (b - a) for a, b in zip(pa.step_marks,
+                                             pa.step_marks[1:])]}
+    out["cli_cavity"] = res
+    print(f"  steps 2-4 {[round(x, 1) for x in res['step_ms']]} ms (with "
+          f"the step-2 save), {res['kle_solves']} KLE solves", flush=True)
+    print(f"  {dofs} velocity dofs, {pa.dtype}: steps {metrics['steps']} "
+          f"(file {on_disk['steps']}), checkpoint step {ck['step']}, "
+          f"checkpoint vorticity bitwise {res['checkpoint_vort_bitwise']}, "
+          f"vec-data-00004.h5 bitwise {h5_equal}, {n} stencil2d launches, "
+          f"{sec:.1f} s", flush=True)
+    if (dofs, pa.dtype, tuple(pa.nelem)) != (7442, torch.float64, (30, 30)):
+        fail(f"13a: not configs/cavity.yaml's cavity: {dofs} dofs")
+    if not (metrics["steps"] == on_disk["steps"] == ck["step"] == 4
+            and res["checkpoint_vort_bitwise"] and h5_equal is not False
+            and n > 0):
+        fail("13a: metrics, checkpoint or fields wrong, or no launches")
+    legs["13a"] = (n, shapes)
+
+    d1, d2 = os.path.join(tmp, "13b"), os.path.join(tmp, "13b-resumed")
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        ["-case", "cavity", "-max-steps", "2", "-opt", "save-n-steps=2",
+         "-opt", f"save-dir={d1}"],
+        ["-case", "cavity", "-resume", os.path.join(d1, "checkpoint.npz"),
+         "-max-steps", "4", "-opt", f"save-dir={d2}"]])
+    pb = calls[1][1]
+    rel = rel_diff(torch, pb.vort, pa.vort)
+    limit = CLI_RESUME_FACTOR * pb.kle_rtol
+    res = {"steps": calls[1][0]["steps"], "vort_rel_diff_vs_13a": rel,
+           "limit": limit, "bitwise": bool(torch.equal(pb.vort, pa.vort)),
+           "stencil_launches": n, "seconds": sec}
+    out["cli_cavity_resume"] = res
+    print(f"  resumed at step 2 to step {res['steps']}: vorticity vs 13a "
+          f"{rel:.3e} (limit {limit:g}), bitwise {res['bitwise']}, {n} "
+          f"stencil2d launches, {sec:.1f} s", flush=True)
+    if res["steps"] != 4 or not rel <= limit:
+        fail(f"13b: resumed cavity vs 13a {rel:.3e} > {limit:g}")
+    legs["13b"] = (n, shapes)
+
+    d1, d2 = os.path.join(tmp, "13c"), os.path.join(tmp, "13c-resumed")
+    cfg = os.path.join(tmp, "cavity384.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(cavity_config(384), f)
+    common = ["-config", cfg, "-case", "cavity", "-dtype", "float32"]
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        common + ["-max-steps", "3", "-opt", "save-n-steps=2", "-opt",
+                  f"save-dir={d1}"],
+        common + ["-resume", os.path.join(d1, "checkpoint.npz"),
+                  "-max-steps", "3", "-opt", f"save-dir={d2}"]])
+    (_, pc, saves), (_, pr, saves_r) = calls
+    marks = pc.step_marks
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    save_s = sum(s[2] for s in saves if s[1] > 1)
+    rel = rel_diff(torch, pr.vort, pc.vort)
+    rel3 = rel_diff(torch, pc.vort, base_vort)
+    _, dtypes = launch_split(torch, stencil.KERNEL, shapes)
+    res = {"velocity_dofs": pc.mesh.n_nodes * pc.dim, "steps": len(marks),
+           "step_ms": step_ms, "saves": saves, "resume_saves": saves_r,
+           "ms_per_step_excl_saves": (sum(step_ms) - 1e3 * save_s)
+           / len(step_ms),
+           "resume_vort_rel_diff": rel, "vs_phase3_rel_diff": rel3,
+           "vs_phase3_bitwise": bool(torch.equal(pc.vort, base_vort)),
+           "stencil_launches": n, "launches_by_dtype": dtypes,
+           "seconds": sec}
+    out["cli_cavity384"] = res
+    print(f"  {res['velocity_dofs']} velocity dofs, float32: steps 1-2, "
+          f"2-3 {step_ms[0]:.1f}, {step_ms[1]:.1f} ms; saves "
+          + ", ".join(f"{k} at step {st} {t:.3f} s" for k, st, t in saves)
+          + f"; {res['ms_per_step_excl_saves']:.1f} ms/step without them",
+          flush=True)
+    print(f"  resumed at step 2: vorticity vs uninterrupted {rel:.3e}; "
+          f"uninterrupted vs phase 3 {rel3:.3e} (bitwise "
+          f"{res['vs_phase3_bitwise']}), resume limit {WS_LIMIT:g}; "
+          f"stencil2d launches {dtypes}, {sec:.1f} s", flush=True)
+    if len(marks) != 3 or not rel <= WS_LIMIT:
+        fail("13c: not 3 steps, or the resumed vorticity past the limit")
+    if not res["vs_phase3_bitwise"]:
+        fail(f"13c: the CLI's run is not phase 3's bit for bit ({rel3:.3e})")
+    if dtypes["float64"] or not dtypes["float32"]:
+        fail(f"13c: stencil2d launches by dtype {dtypes}")
+    legs["13c"] = (n, shapes)
+    return legs
+
+
+def cli_other_legs(torch, stencil, tmp, out):
+    """13d-13f; returns the legs' (launches, logged shapes)."""
+    import yaml
+
+    from pynama_tpu_torch.cases.uniform import UniformFlowProblem
+
+    legs = {}
+    d1, d2, d3 = (os.path.join(tmp, k) for k in ("13d", "13d-2",
+                                                "13d-resumed"))
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        ["-case", "ibm-static", "-max-steps", "3", "-opt", "save-n-steps=1",
+         "-opt", f"save-dir={d1}"],
+        ["-case", "ibm-static", "-max-steps", "2", "-opt", "save-n-steps=1",
+         "-opt", f"save-dir={d2}"],
+        ["-case", "ibm-static", "-resume", os.path.join(d2, "checkpoint.npz"),
+         "-max-steps", "3", "-opt", f"save-dir={d3}"]])
+    m, mr = calls[0][0], calls[2][0]
+    with open(os.path.join(d1, "ibm-static-metrics.yaml")) as f:
+        on_disk = yaml.safe_load(f)
+    keys = ("cd", "cl", "strouhal")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mr["cd"], m["cd"]))
+    res = {"steps": [m["steps"], mr["steps"]], "cd": m["cd"],
+           "cd_resumed": mr["cd"], "cd_rel_diff": rel, "cl": m["cl"],
+           "strouhal": m["strouhal"], "stencil_launches": n,
+           "seconds": sec}
+    out["cli_ibm"] = res
+    print(f"  cd {m['cd']}, resumed {mr['cd']}: rel diff {rel:.3e} (limit "
+          f"{IBM_CD_LIMIT:g}); strouhal {m['strouhal']}; {n} stencil2d "
+          f"launches, {sec:.1f} s", flush=True)
+    if not all(k in m and k in on_disk for k in keys) or \
+            len(mr["cd"]) != len(m["cd"]) or m["steps"] != 3:
+        fail("13d: metrics without cd, cl or strouhal, or short histories")
+    if not rel <= IBM_CD_LIMIT:
+        fail(f"13d: resumed cd history vs uninterrupted {rel:.3e}")
+    legs["13d"] = (n, shapes)
+
+    d = os.path.join(tmp, "13e")
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        ["-case", "uniform", "-max-steps", "1", "-opt", "kle-solver=gmres",
+         "-opt", "multigrid=false", "-opt", f"save-dir={d}"]])
+    (m, p, _), = calls
+    q = UniformFlowProblem({**p.config, "kle-solver": "cg"},
+                           device=p.device).setup()
+    u_cg = q.solve_kle(m["final_time"], p.vort)
+    rel = rel_diff(torch, p.vel, u_cg)
+    limit = GMRES_CG_FACTOR * p.kle_rtol
+    res = {"kle_solver": p.kle_solver, "gmres_iters": p.cg_iters,
+           "cg_iters": q.cg_iters, "vel_rel_diff_vs_cg": rel, "limit": limit,
+           "stencil_launches": n, "seconds": sec}
+    out["cli_gmres"] = res
+    print(f"  {p.kle_solver}: iterations {p.cg_iters}; velocity vs a CG "
+          f"solve ({q.cg_iters} iterations) {rel:.3e} (limit {limit:g}); "
+          f"{n} stencil2d launches", flush=True)
+    if p.kle_solver != "gmres" or not sum(p.cg_iters) > 0 or \
+            not rel <= limit or not n > 0:
+        fail("13e: GMRES not used, no iterations, or off the CG solve")
+    legs["13e"] = (n, shapes)
+
+    d = os.path.join(tmp, "13f")
+    calls, n, shapes, sec = run_cli_leg(torch, stencil, [
+        ["-case", "taylor-green", "-test", "kle", "-opt", f"save-dir={d}"],
+        ["-case", "taylor-green", "-test", "chartkle", "-opt",
+         "time-solver.max-steps=3", "-opt", f"save-dir={d}"]])
+    errs, last = calls[0][0]["errors"], calls[1][0]
+    rels = [abs(a - b) / b for a, b in zip(errs, REF_KLE_ERRORS)]
+    with open("chartkle-taylor-green.yaml") as f:
+        hist = yaml.safe_load(f)
+    res = {"errors": errs, "rel_diff_vs_reference": rels,
+           "chartkle_last": last, "chartkle_steps": hist["step"],
+           "stencil_launches": n, "seconds": sec}
+    out["cli_kle"] = res
+    print(f"  -test kle errors {[f'{e:.3e}' for e in errs]}, max rel diff "
+          f"vs the reference's {max(rels):.3e} (limit {KLE_ERR_RTOL:g}); "
+          f"-test chartkle {last}; {n} stencil2d launches", flush=True)
+    if len(errs) != len(REF_KLE_ERRORS) or not max(rels) <= KLE_ERR_RTOL \
+            or any(b >= a for a, b in zip(errs, errs[1:])):
+        fail("13f: -test kle errors off the reference's, or not falling")
+    if hist["step"] != [1, 2, 3] or not math.isfinite(last["error2"]):
+        fail("13f: -test chartkle did not take 3 finite steps")
+    legs["13f"] = (n, shapes)
+    return legs
+
+
+def phase_cli_legs(torch, stencil, phase, base_vort, checked, out):
+    """Phase 13 (see the module's docstring); ``base_vort`` is phase 3's
+    final vorticity, ``checked`` the (x, W, dtype) shapes earlier phases
+    held against the plain version. Returns stencil2d's launches by leg
+    and 13g's rows."""
+    from collections import Counter
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("yaml", "h5py", "matplotlib")}
+    out["cli_python"] = have
+    print("[13] the command line; installed: " + ", ".join(
+        f"{m} {'yes' if v else 'no'}" for m, v in have.items()), flush=True)
+    legs = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            legs.update(phase(
+                "cli_cavity", "[13a-c] run_case: the cavity, its resume, "
+                "and the 384x384 cavity",
+                lambda: cli_cavity_legs(torch, stencil, tmp, base_vort,
+                                        out)))
+            legs.update(phase(
+                "cli_other", "[13d-f] run_case: ibm-static and its resume, "
+                "uniform with GMRES, taylor-green -test kle and chartkle",
+                lambda: cli_other_legs(torch, stencil, tmp, out)))
+        finally:
+            os.chdir(cwd)
+    logged = Counter()
+    for _, shapes in legs.values():
+        logged.update(shapes)
+    new = Counter({s: c for s, c in logged.items() if s not in checked})
+    rows = phase("cli_kernels",
+                 "[13g] stencil2d vs plain version at the CLI legs' new "
+                 "shapes",
+                 lambda: phase_logged_kernels(torch, stencil, stencil.KERNEL,
+                                              new, sum(new.values()),
+                                              "cli_kernels", out))
+    return {leg: n for leg, (n, _) in legs.items()}, rows
 
 
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
@@ -1528,6 +1918,10 @@ def main():
                                        "parity_kernels", out))
     sl11a, sl11c = phase_ws_legs(torch, stencil, phase, held, out)
     sl12, rows12 = phase_ibm_legs(torch, stencil, phase, out)
+    checked = {(tuple(r["x"]), tuple(r["W"]), r["dtype"]) for r in
+               rows2 + rows12 + out["parity_kernels"]["shapes"]}
+    cli2, rows13 = phase_cli_legs(torch, stencil, phase, held.pop("cavity"),
+                                  checked, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),
@@ -1540,7 +1934,7 @@ def main():
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
                         + sl10["stencil_launches"] + sum(ws2.values())
-                        + sum(ibm2.values()),
+                        + sum(ibm2.values()) + sum(cli2.values()),
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
                         parity_leg_launches=sl10["launches_by_instance"],
@@ -1549,7 +1943,11 @@ def main():
                             for r in out["parity_kernels"]["shapes"]),
                         ws_leg_launches=ws2, ibm_leg_launches=ibm2,
                         ibm_leg_max_abs_err=max(
-                            r["max_abs_err"] for r in rows12)),
+                            r["max_abs_err"] for r in rows12),
+                        cli_leg_launches=cli2,
+                        cli_leg_max_abs_err=max(
+                            (r["max_abs_err"] for r in rows13),
+                            default=None)),
         main_path_entry(k3, rows3, sl3["stencil_launches"]
                         + sl11c["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",

@@ -15,8 +15,8 @@ from pynama_tpu_torch.kle import v_tens_v
 
 class CustomFuncProblem(FreeSlipProblem):
     def __init__(self, config, case="taylor-green", dtype=torch.float64,
-                 device=None):
-        super().__init__(config, dtype=dtype, device=device)
+                 device=None, **overrides):
+        super().__init__(config, dtype=dtype, device=device, **overrides)
         self.case = case
         table = CASES_2D if self.dim == 2 else CASES_3D
         if case not in table:

@@ -9,8 +9,12 @@ mixed-precision refinement (kle-refine, kle-inner-rtol,
 kle-adaptive-inner: float64 state, float32 multigrid-CG inner solves,
 kle.solve_ir; ignored under float32, as in the reference) and
 kle-ws-extrapolate (cross-step warm-start extrapolation,
-solvers/rk.py make_ws_state). GMRES raises NotImplementedError here,
-for every problem.
+solvers/rk.py make_ws_state), and kle-solver (cg, or gmres for the
+single-mask problems: solvers/gmres.py). The constructor takes the
+command line's ``ngl`` and ``nelem`` overrides; a gmsh-file domain
+raises NotImplementedError (unstructured meshes are not ported). ``run``
+writes and resumes checkpoints (io/checkpoint.py, the reference's
+format).
 
 Solver state (vorticity, velocity, CG and multigrid internals) lives in
 the blocked layout of ops/conv.py; grid and flat layouts appear only at
@@ -49,25 +53,25 @@ class BaseProblem:
 
     _mask_names = ()
 
-    def __init__(self, config, dtype=torch.float64, device=None):
+    def __init__(self, config, dtype=torch.float64, device=None, ngl=None,
+                 nelem=None, gmsh_file=None):
+        """``ngl`` and ``nelem`` override the config's domain (None: the
+        config's)."""
         self.config = config
         self.dtype = dtype
         self.device = resolve_device(device)
         self.name = config.get("name", "case")
 
         domain = config.get("domain", {})
-        if domain.get("gmsh-file"):
+        if gmsh_file or domain.get("gmsh-file"):
             raise NotImplementedError("Gmsh (unstructured) meshes are not "
-                                      "ported yet (ROADMAP.md queue 1)")
-        if str(config.get("kle-solver", "cg")).lower() != "cg":
-            raise NotImplementedError("'kle-solver: gmres' is not ported yet "
-                                      "(ROADMAP.md queue 1)")
+                                      "ported yet (ROADMAP.md queue 1 #9)")
         box = domain.get("box-mesh", domain)
-        self.nelem = tuple(box["nelem"])
+        self.nelem = tuple(nelem if nelem is not None else box["nelem"])
         self.dim = len(self.nelem)
         self.lower = tuple(_eval_seq(box.get("lower", (0,) * self.dim)))
         self.upper = tuple(_eval_seq(box.get("upper", (1,) * self.dim)))
-        self.ngl = int(domain["ngl"])
+        self.ngl = int(ngl if ngl is not None else domain["ngl"])
         self.dim_w = 1 if self.dim == 2 else 3
         self.dim_s = 3 if self.dim == 2 else 6
 
@@ -89,6 +93,10 @@ class BaseProblem:
 
         self.kle_rtol = float(config.get("kle-rtol", 1e-10))
         self.kle_maxiter = int(config.get("kle-maxiter", 5000))
+        # the KLE's Krylov solver: "cg", or "gmres" (restarted, with the
+        # same masked system and preconditioner; FreeSlipProblem only,
+        # as in the reference, and never under refinement)
+        self.kle_solver = str(config.get("kle-solver", "cg")).lower()
         # mixed-precision iterative refinement (kle.solve_ir): float64
         # state and true float64 residuals, float32 inner solves
         self._refine = bool(config.get("kle-refine")) and \
@@ -105,9 +113,9 @@ class BaseProblem:
         bc = config.get("boundary-conditions")
         if bc is not None:
             self.read_boundary_condition(bc)
-        # CG iterations of every KLE solve, in order (host integers;
-        # under refinement the inner iterations), and the refinement
-        # rounds of every refined solve
+        # Krylov iterations of every KLE solve, in order (host integers;
+        # CG's, GMRES's under kle-solver: gmres, the inner CG's under
+        # refinement), and the refinement rounds of every refined solve
         self.cg_iters = []
         self.ir_rounds = []
         self._setup_done = False
@@ -313,13 +321,20 @@ class BaseProblem:
         return aux[-1] if isinstance(aux, tuple) else aux
 
     # -- transient -------------------------------------------------------
-    def run(self, callback: Optional[Callable] = None, max_steps=None):
+    def run(self, callback: Optional[Callable] = None, max_steps=None,
+            checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+            resume_from: Optional[str] = None):
         """Advance vorticity from t_start to t_end adaptively.
 
         callback(n, t, dt, vort_grid, vel_grid) runs after each accepted
         step. Returns (vort flat, t, steps); sets self.vort / self.vel.
         Under kle-ws-extrapolate the aux is the slot history, made after
         the initial RHS (which gives the aux its steady structure).
+        With checkpoint_path and checkpoint_every, every checkpoint_every
+        steps saves (step, t, dt, vort, vel, f1) there; resume_from
+        restores them. A checkpoint keeps one velocity, the aux's last
+        member, so a dual-mask problem resumes with both of its solves
+        warm-started from it.
         """
         if not self._setup_done:
             raise RuntimeError("call setup() before run()")
@@ -328,28 +343,62 @@ class BaseProblem:
                                 rtol=self.ts_rtol,
                                 wlte_norm=self._wlte_norm(),
                                 max_dt=self.ts_max_dt, ws_extrapolate=ws)
-        vort = self._blk(self.initial_vorticity())
-        vel = self._blk(self.zero_vel())
-        t = self.t_start
-        dt = self.dt0
-        f1, vel = self.transport_rhs(t, vort, vel)
+        if resume_from:
+            ck, t, dt, n = self._load_state(resume_from)
+            vort, vel, f1 = (self._blk(ck[k]) for k in ("vort", "vel", "f1"))
+            if ws:
+                # the slot history needs the steady aux structure (a pair
+                # for dual-mask problems): one more RHS evaluation
+                _, vel = self.transport_rhs(t, vort, vel)
+        else:
+            vort = self._blk(self.initial_vorticity())
+            vel = self._blk(self.zero_vel())
+            t = self.t_start
+            dt = self.dt0
+            f1, vel = self.transport_rhs(t, vort, vel)
+            n = 0
         if ws:
             vel = make_ws_state(vel, t)
-        n = 0
         steps = max_steps if max_steps is not None else self.max_steps
         while t < self.t_end - 1e-14 and n < steps:
             res = step(vort, t, dt, vel, f1, self.t_end)
             vort, t, dt, vel, f1 = res.y, res.t, res.dt_next, res.aux, \
                 res.f_new
             n += 1
+            save = bool(checkpoint_path and checkpoint_every
+                        and n % checkpoint_every == 0)
+            if callback is None and not save:
+                continue
+            vort_g = self._unblk(vort)
+            vel_g = self._unblk(self._aux_vel(ws_aux_vel(vel) if ws else vel))
             if callback is not None:
-                aux = ws_aux_vel(vel) if ws else vel
-                callback(n, t, dt, self._unblk(vort),
-                         self._unblk(self._aux_vel(aux)))
+                callback(n, t, dt, vort_g, vel_g)
+            if save:
+                self._save_state(checkpoint_path, n, t, dt, vort_g, vel_g,
+                                 self._unblk(f1))
         # public attributes stay flat (interleaved dofs) at the API boundary
         self.vort = self._unblk(vort).reshape(-1)
         self.vel = self._unblk(self.solve_kle(t, vort)).reshape(-1)
         return self.vort, float(t), n
+
+    def _save_state(self, path, n, t, dt, vort, vel, f1, extra=None):
+        """A checkpoint of grid-layout fields, copied to the host here."""
+        from pynama_tpu_torch.io.checkpoint import save_checkpoint
+
+        save_checkpoint(path, step=n, t=float(t), dt=float(dt),
+                        vort=vort.reshape(-1).cpu().numpy(),
+                        vel=vel.reshape(-1).cpu().numpy(),
+                        f1=f1.reshape(-1).cpu().numpy(), extra=extra)
+
+    def _load_state(self, path):
+        """(checkpoint with vort, vel and f1 as grid tensors, t, dt, step)."""
+        from pynama_tpu_torch.io.checkpoint import load_checkpoint
+
+        ck = load_checkpoint(path)
+        for k, comps in (("vort", self.dim_w), ("vel", self.dim),
+                         ("f1", self.dim_w)):
+            ck[k] = self._tensor(ck[k].reshape(self._gshape(comps)))
+        return ck, ck["t"], ck["dt"], ck["step"]
 
 
 class FreeSlipProblem(BaseProblem):
@@ -381,6 +430,42 @@ class FreeSlipProblem(BaseProblem):
             rtol if rtol is not None else self.kle_rtol,
             maxiter if maxiter is not None else self.kle_maxiter, restarts)
         return restore(res.x)
+
+    def _solve(self, name, vort, u_bc, x0, rtol, maxiter, restarts):
+        """BaseProblem._solve, or GMRES under kle-solver: gmres (which
+        ignores ``restarts``); refinement comes first."""
+        if self._refine or self.kle_solver != "gmres":
+            return super()._solve(name, vort, u_bc, x0, rtol, maxiter,
+                                  restarts)
+        res = self._gmres_kle(name, vort, u_bc, x0, rtol, maxiter)
+        self.cg_iters.append(res.iters)
+        return res
+
+    def _gmres_kle(self, name, vort, u_bc, x0, rtol, maxiter):
+        """Restarted GMRES on the masked system of mask ``name``, in the
+        blocked layout raveled, with the CG path's preconditioner: the
+        mask's V-cycle, else Jacobi."""
+        from pynama_tpu_torch.solvers.gmres import gmres_solve
+
+        mask, corr = getattr(self, name + "_b"), self._frees_boundary[name]
+        b = self.system.rhs(vort, u_bc, mask)
+        shape = b.shape
+        if x0 is None:
+            x0 = (1.0 - mask) * u_bc
+        else:
+            x0 = mask * x0 + (1.0 - mask) * u_bc
+        m_inv = self._minv.get(name)
+        if m_inv is None:
+            jm = self.system.jacobi_inv(mask)
+            m_fn = lambda r: (jm * r.reshape(shape)).reshape(-1)  # noqa: E731
+        else:
+            m_fn = lambda r: m_inv(r.reshape(shape)).reshape(-1)  # noqa: E731
+        res = gmres_solve(
+            lambda v: self.system.apply_masked(v.reshape(shape), mask,
+                                               corr).reshape(-1),
+            b.reshape(-1), x0=x0.reshape(-1), m_inv=m_fn, rtol=rtol,
+            maxiter=maxiter)
+        return res._replace(x=res.x.reshape(shape))
 
     def kle_error(self, viscous_times, exact_fields):
         """||u - u_exact||_2 of KLE solves at t = tau^2 / (4 nu);

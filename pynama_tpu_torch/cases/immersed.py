@@ -9,7 +9,7 @@ virtual flux.
 The state (vorticity, KLE velocity and warm starts) stays in the blocked
 layout between steps, as BaseProblem.run keeps it; only the coupling
 reads and writes the flat interleaved grid layout, converted at the
-post-step. Checkpoint and resume, and gmsh domains, are not ported yet.
+post-step. Gmsh domains are not ported yet.
 """
 
 from math import cos, radians, sin
@@ -99,26 +99,34 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
         callback(n, t, dt, vort_grid, vel_grid) runs after each accepted
         step with the corrected velocity. Returns (vort flat, t, steps);
         sets self.vort and self.vel (flat, the corrected velocity).
+        Checkpoints as BaseProblem.run's, with the corrected velocity and
+        the cd, cl and time histories; a resumed run warm-starts its
+        first step from the corrected velocity, as the reference's does.
         """
-        if checkpoint_path or checkpoint_every or resume_from:
-            raise NotImplementedError(
-                "checkpoint and resume are not ported yet (ROADMAP.md "
-                "queue 1, IO and the CLI)")
         if not self._setup_done:
             raise RuntimeError("call setup() before run()")
         step = make_bs5_stepper(self.transport_rhs, atol=self.ts_atol,
                                 rtol=self.ts_rtol,
                                 wlte_norm=self._wlte_norm(),
                                 max_dt=self.ts_max_dt)
-        vort = self._blk(self.initial_vorticity())
-        vel = self._blk(self.zero_vel())
-        t = self.t_start
-        dt = self.dt0
-        # initial condition: zero vorticity, KLE solve + correction
-        Xb, Ub = self._body_state(t)
-        vort, vel, _ = self._post_step(t, vort, vel, Xb, Ub)
-        f1, _ = self.transport_rhs(t, vort, vel)
-        n = 0
+        if resume_from:
+            ck, t, dt, n = self._load_state(resume_from)
+            vort, vel, f1 = (self._blk(ck[k]) for k in ("vort", "vel", "f1"))
+            hist = ck.get("extra", {})
+            self.cd_history = hist.get("cd", [])
+            self.cl_history = hist.get("cl", [])
+            self.t_history = hist.get("times", [])
+            Xb, Ub = self._body_state(t)
+        else:
+            vort = self._blk(self.initial_vorticity())
+            vel = self._blk(self.zero_vel())
+            t = self.t_start
+            dt = self.dt0
+            # initial condition: zero vorticity, KLE solve + correction
+            Xb, Ub = self._body_state(t)
+            vort, vel, _ = self._post_step(t, vort, vel, Xb, Ub)
+            f1, _ = self.transport_rhs(t, vort, vel)
+            n = 0
         vel_ws = vel
         steps = max_steps if max_steps is not None else self.max_steps
         while t < self.t_end - 1e-14 and n < steps:
@@ -138,8 +146,19 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
             n += 1
             if n % save_forces_every == 0:
                 self._record_forces(t, used_dt, q, vort, vel_ws, Xb, Ub)
+            save = bool(checkpoint_path and checkpoint_every
+                        and n % checkpoint_every == 0)
+            if callback is None and not save:
+                continue
+            vort_g, vel_g = self._unblk(vort), self._unblk(vel)
             if callback is not None:
-                callback(n, t, dt, self._unblk(vort), self._unblk(vel))
+                callback(n, t, dt, vort_g, vel_g)
+            if save:
+                self._save_state(checkpoint_path, n, t, dt, vort_g, vel_g,
+                                 self._unblk(f1),
+                                 extra={"cd": self.cd_history,
+                                        "cl": self.cl_history,
+                                        "times": self.t_history})
         # public attributes stay flat (interleaved dofs) at the API boundary
         self.vort = self._unblk(vort).reshape(-1)
         self.vel = self._unblk(vel).reshape(-1)

@@ -16,8 +16,9 @@ class UniformFlowProblem(FreeSlipProblem):
     # it, else it is the unit velocity along x
     cte_value = None
 
-    def __init__(self, config, dtype=torch.float64, device=None):
-        super().__init__(config, dtype=dtype, device=device)
+    def __init__(self, config, dtype=torch.float64, device=None,
+                 **overrides):
+        super().__init__(config, dtype=dtype, device=device, **overrides)
         if self.cte_value is None:
             self.cte_value = (1.0, 0.0) if self.dim == 2 else (1.0, 0.0, 0.0)
 

@@ -238,7 +238,7 @@ def ns_rhs(system_ops: ProjectionOperators, vel, mu, rho, dim):
 def _structured_op_factory(mesh, dtype, device):
     if not (isinstance(mesh, BoxMesh) and mesh.uniform):
         raise NotImplementedError(
-            "only uniform box meshes are ported (ROADMAP.md queue 1)")
+            "only uniform box meshes are ported (ROADMAP.md queue 1 #9)")
     device = resolve_device(device)
     sb = pick_super_factor(tuple(mesh.nelem), mesh.ngl, mesh.dim)
 

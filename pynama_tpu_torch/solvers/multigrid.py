@@ -194,7 +194,7 @@ def coarsening_ratios(mesh, coarsest_max_dofs=1500, max_levels=5):
                 break  # tiny: current ne is coarsest
             raise NotImplementedError(
                 f"nelem={tuple(ne)} needs a padded (fictitious-domain) "
-                "multigrid jump: not ported yet (ROADMAP.md queue 1, "
+                "multigrid jump: not ported yet (ROADMAP.md queue 1 #4, "
                 "padded MG jumps)")
         jumps.append(r)
         ne = [n // r for n in ne]

@@ -7,7 +7,8 @@ the warm-start extrapolation (kle-ws-extrapolate) through the kernels
 against the plain version, its scan attempt against its stepper, and
 its history on the card; the immersed-boundary path through the kernels
 against the plain version, and stencil2d's float64 instance at its
-non-square and 8-channel shapes; the breakdown kernel in every mode
+non-square and 8-channel shapes; a single-mask resume bit for bit, and
+kle-solver: gmres against the CPU; the breakdown kernel in every mode
 against its plain version, and under a CUDA graph.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
@@ -585,6 +586,57 @@ def test_ibm_kernels_match_plain(cuda, monkeypatch):
     assert err <= 1e-8, err
     a, b = pk.cd_history[-1][0], pp.cd_history[-1][0]
     assert abs(a - b) <= 1e-6 * abs(b), (a, b)
+
+
+def taylor_green8_config():
+    """tests/test_cases.py's make_config((8, 8), 3, rho=0.5, mu=0.01,
+    end=0.5, max_steps=10), written out: this file imports no JAX."""
+    return {"name": "test", "material-properties": {"rho": 0.5, "mu": 0.01},
+            "domain": {"ngl": 3, "box-mesh": {"nelem": [8, 8],
+                                              "lower": [0, 0],
+                                              "upper": [1, 1]}},
+            "time-solver": {"start-time": 0.0, "end-time": 0.5,
+                            "max-steps": 10}}
+
+
+def test_resume_single_mask_is_bitwise_on_card(cuda, tmp_path):
+    """A single-mask problem (Taylor-Green 8x8, float64) run 4 steps
+    against 2 + checkpoint + resume 2 through the kernels: bit for bit
+    (the checkpoint keeps every value of the state; the kernels are
+    deterministic)."""
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+
+    cfg = taylor_green8_config()
+    p1 = CustomFuncProblem(cfg, case="taylor-green").setup()
+    w1, t1, n1 = p1.run(max_steps=4)
+    ck = str(tmp_path / "ck.npz")
+    p2 = CustomFuncProblem(cfg, case="taylor-green").setup()
+    before = stencil.KERNEL.launches
+    p2.run(max_steps=2, checkpoint_path=ck, checkpoint_every=2)
+    w2, t2, n2 = p2.run(max_steps=4, resume_from=ck)
+    assert stencil.KERNEL.launches > before
+    assert (n1, t1) == (n2, t2) and w2.device.type == "cuda"
+    assert torch.equal(w1, w2)
+
+
+def test_gmres_kle_on_card_matches_cpu(cuda):
+    """kle-solver: gmres on the card (Jacobi, 8x8 Taylor-Green, float64,
+    a seeded vorticity) against the same solve on the CPU: the same
+    iterations, velocities within 1e-10."""
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+
+    cfg = taylor_green8_config()
+    cfg.update({"kle-solver": "gmres", "multigrid": False})
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = CustomFuncProblem(cfg, case="taylor-green", device=dev).setup()
+        vort = torch.as_tensor(np.random.default_rng(3).normal(
+            size=p._gshape(1)), device=dev)
+        u = p.solve_kle(0.3, vort, rtol=1e-11, maxiter=3000)
+        out.append((u.cpu(), p.cg_iters[-1]))
+    (uc, ic), (ug, ig) = out
+    assert ic == ig > 0
+    assert float((ug - uc).abs().max() / uc.abs().max()) < 1e-10
 
 
 @pytest.mark.parametrize("TR", sb.TILE_ROWS)

@@ -88,10 +88,20 @@ def test_boundary_condition_forms_match_reference(bc):
                                  "checkpoint_every": 1},
                                 {"resume_from": "ck.npz"}],
                          ids=["checkpoint", "resume"])
-def test_checkpoint_arguments_raise(kw):
+def test_checkpoint_arguments_raise(kw, tmp_path, monkeypatch):
+    """Checkpoint and resume are ported: a checkpoint is written, and a
+    resume raises only for a missing file (tests/test_torch_io.py runs a
+    resume)."""
+    from pynama_tpu_torch.io.checkpoint import load_checkpoint
+
+    monkeypatch.chdir(tmp_path)
     p = immersed.ImmersedBoundaryProblem(ibm_config(8), device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    if "resume_from" in kw:
+        with pytest.raises(FileNotFoundError):
+            p.run(max_steps=1, **kw)
+    else:
         p.run(max_steps=1, **kw)
+        assert load_checkpoint("ck.npz")["step"] == 1
 
 
 def test_non_box_couplings_raise():
