@@ -147,7 +147,37 @@ Phases, each timed; any failure exits non-zero:
        error within KLE_ERR_RTOL of the reference's and falling, as in
        its JSON; and -test chartkle -opt time-solver.max-steps=3;
    13g stencil2d against its plain version at every shape 13a-13f
-       logged that no earlier phase checked, timed as device time.
+       logged that no earlier phase checked, timed as device time;
+14. unstructured Gmsh meshes (float64; ElementOps and additive Schwarz,
+   plain torch: the path launches no stencil kernel, and every count,
+   set to 0 just before each run and read just after, must stay 0); the
+   meshes are Gmsh v2.2 files this script writes to a temporary
+   directory from seeded jitters of interior corners:
+   14a CavityProblem(cfg).setup().run(max_steps=3), configs/cavity.yaml's
+       material, BCs and time-solver on 128x128 quads jittered by
+       +-0.15/128 (16,384 cells, 132,098 velocity dofs; unnamed: the
+       walls come from the geometric fallback); one-level vertex-star
+       Schwarz (the coarse space is over its guard); setup seconds by
+       stage, ms per step, attempts, CG iterations per solve, peak
+       memory and whether the numbering ran natively;
+   14b CustomFuncProblem(cfg, case="taylor-green") on 16^3 hexes
+       jittered by +-0.03/16, 3 steps: the vertex stars exceed the block
+       guard, so the Schwarz retries with element blocks; the velocity
+       within GMSH_TG_EXACT_LIMIT of the exact field (the port's CPU
+       run of the same config plus 5%);
+   14c run_case.main(["-case", "channel3d", "-gmsh", FILE, ...]) for 1
+       step: channel3d.yaml's geometry at 12x12x30 hexes with the x = 0
+       quads named "left"; the named face's nodes, and the uniform flow
+       reproduced (it is the exact solution: this leg checks the CLI
+       path and the named 3D faces, not CG work);
+   14d an 8x8 Gmsh cavity (3 steps) and a 3x3x3 Gmsh Taylor-Green (2
+       steps) on the card and on the CPU: vorticities within 1e-8, CG
+       lists side by side; 14a's initial RHS (its first two solves)
+       again, bit for bit with the same CG iterations, then once more
+       under the sync debug mode and the profiler: host syncs, kernels
+       and device time per CG iteration; and 14a's initial RHS at its own
+       size on a problem set up with device="cpu": RHS and velocities
+       within 1e-8 of the card's, CG iterations side by side.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -1614,6 +1644,471 @@ def phase_cli_legs(torch, stencil, phase, base_vort, checked, out):
     return {leg: n for leg, (n, _) in legs.items()}, rows
 
 
+# ----------------------------------------------------------------------
+# phase 14: unstructured Gmsh meshes (no kernel: ElementOps and Schwarz)
+# ----------------------------------------------------------------------
+GMSH_CAVITY_N = 128        # 14a: quads per side, jittered by 0.15 / N
+GMSH_TG_N = 16             # 14b: hexes per side, jittered by 0.03 / N
+GMSH_CHANNEL = (12, 12, 30)  # 14c: channel3d's box, cut from 32x32x80
+GMSH_CPU_LIMIT = 1e-8      # 14d: card vs CPU vorticity / RHS, relative
+# 14b: the velocity's relative error against the exact field after 3
+# steps: the port's CPU run of the same config gave GMSH_TG_CPU_ERR
+# (gmsh_tg_cpu_error(), a few minutes; its last digits follow the host's
+# thread count); the card may be 5% above it
+GMSH_TG_CPU_ERR = 0.1250127793413192
+GMSH_TG_EXACT_LIMIT = 1.05 * GMSH_TG_CPU_ERR
+
+
+def box_corner_mesh(nx, ny, distort=0.0, seed=0):
+    """Corner points + ccw quads of an nx x ny unit box, interior corners
+    jittered by uniform(-distort, distort) (tests/test_unstructured.py's
+    helper, copied)."""
+    import numpy as np
+
+    xs = np.linspace(0, 1, nx + 1)
+    ys = np.linspace(0, 1, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="xy")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1)], axis=1)
+    if distort:
+        rng = np.random.default_rng(seed)
+        interior = ((pts[:, 0] > 0) & (pts[:, 0] < 1) & (pts[:, 1] > 0)
+                    & (pts[:, 1] < 1))
+        pts[interior] += rng.uniform(-distort, distort,
+                                     (interior.sum(), 2))
+    W = nx + 1
+    v0 = (np.arange(ny)[:, None] * W + np.arange(nx)[None, :]).reshape(-1)
+    quads = np.stack([v0, v0 + 1, v0 + 1 + W, v0 + W], axis=1)
+    return pts, quads.astype(np.int64)
+
+
+def box_hex_mesh(nx, ny, nz, distort=0.0, seed=0, upper=(1.0, 1.0, 1.0)):
+    """Corner points + gmsh-ordered hexes of an nx x ny x nz box (the
+    unit box's helper of tests/test_unstructured.py, copied, then scaled
+    to ``upper``)."""
+    import numpy as np
+
+    xs, ys, zs = (np.linspace(0, 1, k + 1) for k in (nx, ny, nz))
+    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)], axis=1)
+    if distort:
+        rng = np.random.default_rng(seed)
+        interior = np.all((pts > 0) & (pts < 1), axis=1)
+        pts[interior] += rng.uniform(-distort, distort,
+                                     (interior.sum(), 3))
+    pts = pts * np.asarray(upper)
+    W, H = nx + 1, (nx + 1) * (ny + 1)
+    v0 = (np.arange(nz)[:, None, None] * H + np.arange(ny)[None, :, None] * W
+          + np.arange(nx)[None, None, :]).reshape(-1)
+    hexes = np.stack([v0, v0 + 1, v0 + 1 + W, v0 + W, v0 + H, v0 + 1 + H,
+                      v0 + 1 + W + H, v0 + W + H], axis=1)
+    return pts, hexes.astype(np.int64)
+
+
+def write_msh22(path, pts, cells, etype, walls=None):
+    """A Gmsh v2.2 ASCII file of ``cells`` (gmsh type 3 quads or 5
+    hexes). With ``walls`` (quads on the x = 0 plane of a hex mesh) they
+    are the physical surface "left" and the hexes the volume "fluid", as
+    tests/test_unstructured.py's _write_hex_msh writes them; without,
+    nothing is named."""
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        if walls is not None:
+            f.write('$PhysicalNames\n2\n2 10 "left"\n3 20 "fluid"\n'
+                    "$EndPhysicalNames\n")
+        f.write(f"$Nodes\n{len(pts)}\n")
+        for i, p in enumerate(pts):
+            z = p[2] if len(p) > 2 else 0.0
+            f.write(f"{i + 1} {p[0]:.17g} {p[1]:.17g} {z:.17g}\n")
+        f.write("$EndNodes\n")
+        walls = [] if walls is None else walls
+        f.write(f"$Elements\n{len(cells) + len(walls)}\n")
+        for i, c in enumerate(cells):
+            f.write(f"{i + 1} {etype} 2 20 1 "
+                    + " ".join(str(v + 1) for v in c) + "\n")
+        for i, q in enumerate(walls):
+            f.write(f"{len(cells) + i + 1} 3 2 10 2 "
+                    + " ".join(str(v + 1) for v in q) + "\n")
+        f.write("$EndElements\n")
+
+
+def left_wall_quads(nx, ny, nz):
+    """The x = 0 boundary quads of box_hex_mesh(nx, ny, nz)."""
+    W, H = nx + 1, (nx + 1) * (ny + 1)
+    return [[v0, v0 + W, v0 + W + H, v0 + H]
+            for v0 in (ez * H + ey * W for ez in range(nz)
+                       for ey in range(ny))]
+
+
+def gmsh_cavity_config(path, nelem):
+    """configs/cavity.yaml's material, boundary conditions and
+    time-solver on a Gmsh file of nelem x nelem quads (unnamed: the walls
+    come from the geometric fallback), dt0 at the explicit step limit:
+    0.4 at 8x8 scaled as h^2 (tests/test_torch_cavity_dt_limit.py). The
+    file's dt0 of 0.1 cost 128x128 three rejected attempts (12 KLE solves
+    of ~650 CG iterations each) before the first step."""
+    import yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "cavity.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["domain"] = {"ngl": 3, "gmsh-file": path}
+    cfg["time-solver"]["dt0"] = 0.4 * (8 / nelem) ** 2
+    return cfg
+
+
+def gmsh_tg_config(path):
+    """tests/test_unstructured.py test_gmsh_hex_case_transient's material,
+    first step (dt0 0.002) and KLE tolerance at ngl 3 on a Gmsh file; its
+    end time 0.02 would end the run after 2 steps, so the end time is 1."""
+    return {
+        "name": "tg3d-gmsh",
+        "material-properties": {"rho": 1.0, "mu": 0.01},
+        "domain": {"ngl": 3, "gmsh-file": path},
+        "time-solver": {"start-time": 0.0, "end-time": 1.0,
+                        "max-steps": 20, "dt0": 0.002},
+        "kle-rtol": 1e-11,
+    }
+
+
+def gmsh_tg_cpu_error():
+    """14b's run on the CPU: the source of GMSH_TG_CPU_ERR.
+
+        python3 -c "import chip_smoke; print(chip_smoke.gmsh_tg_cpu_error())"
+    """
+    import torch
+
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+
+    n = GMSH_TG_N
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tg3d.msh")
+        pts, hexes = box_hex_mesh(n, n, n, distort=0.03 / n)
+        write_msh22(path, pts, hexes, 5)
+        p = CustomFuncProblem(gmsh_tg_config(path), case="taylor-green",
+                              device="cpu").setup()
+    _, t, _ = p.run(max_steps=3)
+    vel_e, _ = p.exact_fields(t)
+    return rel_diff(torch, p.vel, vel_e.reshape(-1))
+
+
+def gmsh_run(torch, stencil, p, key, out, steps=3):
+    """setup() + run(max_steps=steps) of a Gmsh problem, the launch counts
+    set to 0 just before and read just after (this path launches no
+    stencil kernel: every count must stay 0); RHS evaluations counted
+    (6 an attempt) and the initial RHS's result kept for 14d."""
+    from pynama_tpu_torch.mesh.native import have_native
+
+    marks = []
+    rhs, first = p.transport_rhs, {}
+
+    def counted(t, vort, aux):
+        f, aux_out = rhs(t, vort, aux)
+        if not first:
+            first.update(f=f.clone(), aux=tuple(a.clone() for a in aux_out)
+                         if isinstance(aux_out, tuple) else aux_out.clone(),
+                         t=t, iters=list(p.cg_iters))
+        first["evals"] = first.get("evals", 0) + 1
+        return f, aux_out
+
+    def callback(n, t, dt, vort, vel):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), len(p.cg_iters), first["evals"],
+                      dt))
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
+    p.transport_rhs = counted
+    vort, t, n = p.run(max_steps=steps, callback=callback)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {k.name: k.launches for k in stencil.KERNELS.values()}
+    if n != steps or len(marks) != steps:
+        fail(f"{key}: expected {steps} accepted steps, got {n}")
+    if not bool(torch.isfinite(vort).all()):
+        fail(f"{key}: final vorticity is not finite")
+    if any(launches.values()):
+        fail(f"{key}: the Gmsh path launched stencil kernels {launches}")
+    starts = [(t_setup, 0, 1)] + [m[:3] for m in marks]
+    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(starts, starts[1:])]
+    evals = [b[2] - a[2] for a, b in zip(starts, starts[1:])]
+    iters = p.cg_iters
+    pcs = {name: {"patches": pc.patches, "n_patches": pc.n_patches,
+                  "block_dofs": pc.block_dofs, "coarse_dofs": pc.coarse_dofs}
+           for name, pc in p._minv.items()}
+    res = {
+        "cells": p.mesh.n_cells, "nodes": p.mesh.n_nodes, "ngl": p.ngl,
+        "velocity_dofs": p.mesh.n_nodes * p.dim,
+        "dtype": str(p.dtype).replace("torch.", ""), "steps": n, "t": t,
+        "dt": [m[3] for m in marks],
+        "setup_s": t_setup - t0, "setup_split_s": dict(p.setup_s),
+        "step_ms": step_ms, "first_step_incl_initial_rhs": True,
+        "ms_per_step_2_3": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+        "attempts_per_step": [e // 6 for e in evals],
+        "run_s_incl_final_solve": t_end - t_setup,
+        "kle_solves": len(iters), "cg_iters": iters,
+        "cg_iters_per_solve": sum(iters) / len(iters),
+        "preconditioners": pcs, "native_numbering": have_native(),
+        "stencil_launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    out[key] = res
+    print(f"  {res['cells']} cells, {res['nodes']} nodes, "
+          f"{res['velocity_dofs']} velocity dofs; setup "
+          f"{res['setup_s']:.2f} s (" + ", ".join(
+              f"{k} {v:.2f}" for k, v in p.setup_s.items())
+          + f"); native numbering {res['native_numbering']}", flush=True)
+    for name, pc in pcs.items():
+        print(f"  {name}: {pc['n_patches']} {pc['patches']} patches of "
+              f"{pc['block_dofs']} dofs, coarse dofs {pc['coarse_dofs']}",
+              flush=True)
+    print(f"  steps {[round(x, 1) for x in step_ms]} ms (step 1 with the "
+          f"initial RHS), attempts {res['attempts_per_step']}, dt "
+          f"{res['dt']}; {len(iters)} KLE solves, "
+          f"{res['cg_iters_per_solve']:.1f} CG iterations per solve (max "
+          f"{max(iters)}); peak memory {res['peak_mem_gib']:.2f} GiB; "
+          f"stencil launches {launches}", flush=True)
+    p.transport_rhs = rhs
+    return first
+
+
+def gmsh_cavity_leg(torch, stencil, tmp, out):
+    """14a; returns its problem and the initial RHS's record."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    t0 = time.perf_counter()
+    n = GMSH_CAVITY_N
+    path = os.path.join(tmp, "cavity.msh")
+    pts, quads = box_corner_mesh(n, n, distort=0.15 / n, seed=1)
+    write_msh22(path, pts, quads, 3)
+    p = CavityProblem(gmsh_cavity_config(path, n))
+    write_s = time.perf_counter() - t0
+    first = gmsh_run(torch, stencil, p, "gmsh_cavity", out)
+    out["gmsh_cavity"]["write_and_read_s"] = write_s
+    return p, first
+
+
+def gmsh_tg_leg(torch, stencil, tmp, out):
+    """14b."""
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+
+    n = GMSH_TG_N
+    path = os.path.join(tmp, "tg3d.msh")
+    pts, hexes = box_hex_mesh(n, n, n, distort=0.03 / n)
+    write_msh22(path, pts, hexes, 5)
+    p = CustomFuncProblem(gmsh_tg_config(path), case="taylor-green")
+    gmsh_run(torch, stencil, p, "gmsh_tg3d", out)
+    t = out["gmsh_tg3d"]["t"]
+    vel_e, _ = p.exact_fields(t)
+    err = rel_diff(torch, p.vel, vel_e.reshape(-1))
+    pc = out["gmsh_tg3d"]["preconditioners"]["free_mask"]
+    out["gmsh_tg3d"].update(vel_rel_err_vs_exact=err,
+                            cpu_vel_rel_err=GMSH_TG_CPU_ERR)
+    print(f"  velocity vs exact at t {t:.6g}: {err:.6e} (the CPU run "
+          f"{GMSH_TG_CPU_ERR:.6e}, limit {GMSH_TG_EXACT_LIMIT:g})",
+          flush=True)
+    if pc["patches"] != "element":
+        fail("14b: vertex stars fit the guard; the retry to element "
+             "blocks was not exercised")
+    if not err < GMSH_TG_EXACT_LIMIT:
+        fail(f"14b: velocity error vs exact {err:.3e}")
+
+
+def gmsh_channel_leg(torch, stencil, tmp, out):
+    """14c: the documented command through run_case.main."""
+    import numpy as np
+
+    nx, ny, nz = GMSH_CHANNEL
+    path = os.path.join(tmp, "channel.msh")
+    pts, hexes = box_hex_mesh(nx, ny, nz, distort=0.1 / nx, seed=3,
+                              upper=(1.0, 1.0, 2.5))
+    write_msh22(path, pts, hexes, 5, walls=left_wall_quads(nx, ny, nz))
+    d = os.path.join(tmp, "14c")
+    calls, n, _, sec = run_cli_leg(torch, stencil, [
+        ["-case", "channel3d", "-gmsh", path, "-max-steps", "1",
+         "-opt", f"save-dir={d}"]])
+    metrics, p, _ = calls[0]
+    left = p.mesh.face_nodes.get("left")
+    on_plane = left is not None and \
+        bool(np.abs(p.mesh.coords[left, 0]).max() <= 1e-12)
+    want = (2 * ny + 1) * (2 * nz + 1)
+    dev = float((p.vel.reshape(-1, 3) - torch.tensor(
+        [1.0, 0.0, 0.0], dtype=p.vel.dtype, device=p.vel.device)).abs().max())
+    res = {"hexes": list(GMSH_CHANNEL), "velocity_dofs": p.mesh.n_nodes * 3,
+           "steps": metrics["steps"], "seconds": sec,
+           "setup_split_s": dict(p.setup_s), "face_names":
+           sorted(p.mesh.face_nodes), "left_nodes": 0 if left is None
+           else len(left), "left_nodes_expected": want,
+           "max_abs_u_minus_uniform": dev, "cg_iters": p.cg_iters,
+           "preconditioner": p._minv["free_mask"].patches,
+           "stencil_launches": n}
+    out["gmsh_channel3d"] = res
+    print(f"  {res['velocity_dofs']} velocity dofs, 1 step in {sec:.1f} s "
+          f"(setup " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                 p.setup_s.items())
+          + f"); faces {res['face_names']}, 'left' {res['left_nodes']} "
+          f"nodes (want {want}) on x = 0 {on_plane}; max |u - (1,0,0)| "
+          f"{dev:.3e}; CG {p.cg_iters}; {res['preconditioner']} patches",
+          flush=True)
+    if metrics["steps"] != 1 or n != 0:
+        fail("14c: not 1 step, or stencil kernels launched")
+    if res["face_names"] != ["left"] or res["left_nodes"] != want or \
+            not on_plane:
+        fail("14c: the named face 'left' is not the x = 0 plane's nodes")
+    if not dev <= 1e-6:
+        fail(f"14c: the uniform flow is not reproduced: {dev:.3e}")
+
+
+def gmsh_cpu_leg(torch, tmp, out, p14, first):
+    """14d: small Gmsh runs on the card and on the CPU; 14a's initial RHS
+    repeated on the card (bit for bit, the same CG iterations), then once
+    more under the sync debug mode and the profiler: host syncs, kernel
+    launches and device time per CG iteration; then 14a's initial RHS at
+    its own size on the CPU against the card's."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pynama_tpu_torch.cases.analytic import CustomFuncProblem
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    c_path, h_path = (os.path.join(tmp, k) for k in ("c8.msh", "h3.msh"))
+    pts, quads = box_corner_mesh(8, 8, distort=0.15 / 8, seed=1)
+    write_msh22(c_path, pts, quads, 3)
+    pts, hexes = box_hex_mesh(3, 3, 3, distort=0.03 / 3)
+    write_msh22(h_path, pts, hexes, 5)
+    legs = {}
+    for name, make, steps in (
+            ("cavity_8x8", lambda dev: CavityProblem(
+                gmsh_cavity_config(c_path, 8), device=dev), 3),
+            ("tg3d_3x3x3", lambda dev: CustomFuncProblem(
+                gmsh_tg_config(h_path), case="taylor-green", device=dev), 2)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = make(dev).setup()
+            vort, t, n = p.run(max_steps=steps)
+            runs[dev] = (vort.cpu(), t, n, p.cg_iters)
+        (vc, tc, nc, ic), (vh, th, nh, ih) = runs["cuda"], runs["cpu"]
+        rel = rel_diff(torch, vc, vh)
+        legs[name] = {"steps": [nc, nh], "t": [tc, th], "vort_rel_diff": rel,
+                      "cg_iters_card": ic, "cg_iters_cpu": ih}
+        print(f"  {name}: steps {nc}/{nh}, vorticity card vs CPU {rel:.3e} "
+              f"(limit {GMSH_CPU_LIMIT:g}); CG card {ic}", flush=True)
+        print(f"  {'':{len(name)}}  CG CPU  {ih}", flush=True)
+        if nc != steps or nh != steps or not rel <= GMSH_CPU_LIMIT:
+            fail(f"14d {name}: card vs CPU {rel:.3e}, steps {nc}/{nh}")
+
+    def repeat():
+        k = len(p14.cg_iters)
+        f, aux = p14.transport_rhs(first["t"], p14.initial_vorticity(),
+                                   p14.zero_vel())
+        torch.cuda.synchronize()
+        return f, aux, p14.cg_iters[k:]
+
+    want_iters = first["iters"][:2] if len(first["iters"]) >= 2 else None
+    f, aux, iters = repeat()
+    same = bool(torch.equal(f, first["f"])) and all(
+        torch.equal(a, b) for a, b in zip(aux, first["aux"]))
+    # once more: host syncs (every synchronizing call warns once) and
+    # the profiler's kernels
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            f2, _, iters2 = repeat()
+            wall = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    kernels, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if "CUDA" in str(e.device_type) and us > 0:
+            kernels += e.count
+            dev_us += us
+    its = sum(iters2)
+    res = {"legs": legs, "repeat_bitwise_equal": same,
+           "repeat_cg_iters": iters, "first_cg_iters": want_iters,
+           "profiled_repeat_bitwise_equal": bool(torch.equal(f2, f)),
+           "profiled_wall_ms": 1e3 * wall, "host_syncs": syncs,
+           "kernels": kernels, "device_ms": dev_us / 1e3,
+           "cg_iters_profiled": iters2,
+           "host_syncs_per_iteration": syncs / max(its, 1),
+           "kernels_per_iteration": kernels / max(its, 1),
+           "device_busy_share": dev_us / 1e3 / (1e3 * wall)}
+    out["gmsh_card_vs_cpu"] = res
+    print(f"  14a's initial RHS again: bitwise equal {same}, CG {iters} "
+          f"(14a {want_iters}); under the sync debug mode and the profiler: "
+          f"{syncs} host syncs and {kernels} kernels over {its} CG "
+          f"iterations ({res['host_syncs_per_iteration']:.2f} and "
+          f"{res['kernels_per_iteration']:.1f} an iteration), device "
+          f"{res['device_ms']:.1f} ms of {res['profiled_wall_ms']:.1f} ms "
+          f"wall ({100 * res['device_busy_share']:.1f}% busy, profiler on)",
+          flush=True)
+    if not same or iters != want_iters or not res[
+            "profiled_repeat_bitwise_equal"]:
+        fail("14d: a repeat of 14a's first solves is not bitwise equal or "
+             "takes other CG iterations")
+    gmsh_full_size_cpu(torch, tmp, first, res)
+
+
+def gmsh_full_size_cpu(torch, tmp, first, res):
+    """14a's initial RHS (its first two KLE solves, one-level Schwarz at
+    132,098 dofs) on a problem set up from the same file with
+    device="cpu": the RHS and both velocities within GMSH_CPU_LIMIT of
+    the card's."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    def tup(a):
+        return a if isinstance(a, tuple) else (a,)
+
+    t0 = time.perf_counter()
+    cfg = gmsh_cavity_config(os.path.join(tmp, "cavity.msh"), GMSH_CAVITY_N)
+    p = CavityProblem(cfg, device="cpu").setup()
+    t1 = time.perf_counter()
+    f, aux = p.transport_rhs(first["t"], p.initial_vorticity(), p.zero_vel())
+    t2 = time.perf_counter()
+    pairs = [(first["f"], f)] + list(zip(tup(first["aux"]), tup(aux)))
+    rels = [rel_diff(torch, a.cpu(), b) for a, b in pairs]
+    card_iters = first["iters"][:len(p.cg_iters)]
+    res.update(full_size_cpu_rel_diff=rels, full_size_cpu_cg_iters=p.cg_iters,
+               full_size_card_cg_iters=card_iters,
+               full_size_cpu_setup_s=t1 - t0, full_size_cpu_rhs_s=t2 - t1)
+    print(f"  14a's initial RHS on the CPU ({p.mesh.n_nodes * p.dim} "
+          f"velocity dofs; setup {t1 - t0:.1f} s, RHS {t2 - t1:.1f} s): RHS "
+          f"and velocities vs the card {', '.join(f'{r:.3e}' for r in rels)}"
+          f" (limit {GMSH_CPU_LIMIT:g}); CG CPU {p.cg_iters}, card "
+          f"{card_iters}", flush=True)
+    if not max(rels) <= GMSH_CPU_LIMIT:
+        fail(f"14d: 14a's initial RHS on the CPU is {max(rels):.3e} off "
+             "the card's")
+
+
+def phase_gmsh_legs(torch, stencil, phase, out):
+    """Phase 14 (see the module's docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        p14, first = phase("gmsh_cavity",
+                           f"[14a] Gmsh cavity: {GMSH_CAVITY_N}x"
+                           f"{GMSH_CAVITY_N} distorted quads, 3 steps",
+                           lambda: gmsh_cavity_leg(torch, stencil, tmp, out))
+        phase("gmsh_tg3d", f"[14b] Gmsh 3D Taylor-Green: {GMSH_TG_N}^3 "
+              "distorted hexes, 3 steps",
+              lambda: gmsh_tg_leg(torch, stencil, tmp, out))
+        phase("gmsh_channel3d", "[14c] run_case -case channel3d -gmsh: "
+              + "x".join(map(str, GMSH_CHANNEL)) + " hexes, 1 step",
+              lambda: gmsh_channel_leg(torch, stencil, tmp, out))
+        phase("gmsh_card_vs_cpu", "[14d] Gmsh runs on the card vs the CPU; "
+              "14a's first solves repeated, and on the CPU",
+              lambda: gmsh_cpu_leg(torch, tmp, out, p14, first))
+
+
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     """One entry of the "kernels" line; ``head`` holds the kernel's,
     the plain version's and the library call's times and the bound at the
@@ -1922,6 +2417,7 @@ def main():
                rows2 + rows12 + out["parity_kernels"]["shapes"]}
     cli2, rows13 = phase_cli_legs(torch, stencil, phase, held.pop("cavity"),
                                   checked, out)
+    phase_gmsh_legs(torch, stencil, phase, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),

@@ -1,8 +1,9 @@
 """Problem orchestration: setup -> KLE solve -> transient run.
 
-Port of pynama_tpu/cases/base.py for uniform 2D and 3D box meshes. The
-config schema is the reference's YAML: name, material-properties {rho,
-mu}, domain {ngl, box-mesh {nelem, lower, upper}}, time-solver
+Port of pynama_tpu/cases/base.py for uniform 2D and 3D box meshes and
+unstructured Gmsh meshes (2D quads, 3D hexes). The config schema is the
+reference's YAML: name, material-properties {rho, mu}, domain {ngl,
+box-mesh {nelem, lower, upper}} or domain {ngl, gmsh-file}, time-solver
 {start-time, end-time, max-steps, dt0, atol, rtol, max-dt},
 boundary-conditions, kle-rtol, kle-maxiter, multigrid, and the
 mixed-precision refinement (kle-refine, kle-inner-rtol,
@@ -10,20 +11,25 @@ kle-adaptive-inner: float64 state, float32 multigrid-CG inner solves,
 kle.solve_ir; ignored under float32, as in the reference) and
 kle-ws-extrapolate (cross-step warm-start extrapolation,
 solvers/rk.py make_ws_state), and kle-solver (cg, or gmres for the
-single-mask problems: solvers/gmres.py). The constructor takes the
-command line's ``ngl`` and ``nelem`` overrides; a gmsh-file domain
-raises NotImplementedError (unstructured meshes are not ported). ``run``
-writes and resumes checkpoints (io/checkpoint.py, the reference's
-format).
+single-mask problems: solvers/gmres.py), unstructured-pc (schwarz, the
+default, or jacobi; Gmsh meshes only). The constructor takes the command
+line's ``ngl``, ``nelem`` and ``gmsh_file`` overrides. ``run`` writes
+and resumes checkpoints (io/checkpoint.py, the reference's format).
 
-Solver state (vorticity, velocity, CG and multigrid internals) lives in
-the blocked layout of ops/conv.py; grid and flat layouts appear only at
-the API boundary (solve_kle, transport_rhs and the run's results).
+On a box mesh the solver state (vorticity, velocity, CG and multigrid
+internals) lives in the blocked layout of ops/conv.py; grid and flat
+layouts appear only at the API boundary (solve_kle, transport_rhs and
+the run's results). On a Gmsh mesh (``_blocked`` False) there is no
+grid: the state is flat and interleaved (dof k*node + c) throughout, the
+operators are ElementOps (ops/assembly.py) and the preconditioner is
+additive Schwarz (solvers/schwarz.py); the layout converters below are
+identities there.
 ``device=None`` means ``"cuda"``; without a card the constructor raises
 unless the caller passes ``device="cpu"``.
 """
 
 import logging
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -42,35 +48,45 @@ logger = logging.getLogger("pynama_tpu_torch")
 
 
 class BaseProblem:
-    """Shared setup/orchestration (uniform 2D and 3D box meshes).
+    """Shared setup/orchestration (box and Gmsh meshes).
 
     Subclasses build their numpy BC arrays in ``setup_bc`` (as
-    ``self._bc_arrays``, grid layout) and name the free-dof masks that
-    get a multigrid V-cycle in ``_mask_names``. Under refinement each of
-    those masks also has a float32 blocked copy, ``name + "32_b"``, for
-    the inner solves and their float32 V-cycles.
+    ``self._bc_arrays``, in ``_gshape`` layout) and name the free-dof
+    masks that get a preconditioner (a multigrid V-cycle, or Schwarz on a
+    Gmsh mesh) in ``_mask_names``. Each array is a tensor ``name`` and, in
+    the solver layout, ``name + "_b"`` (the same tensor on a Gmsh mesh).
+    Under refinement each of those masks also has a float32 copy,
+    ``name + "32_b"``, for the inner solves and their preconditioners.
+    ``setup_s`` holds the seconds of each setup stage.
     """
 
     _mask_names = ()
 
     def __init__(self, config, dtype=torch.float64, device=None, ngl=None,
                  nelem=None, gmsh_file=None):
-        """``ngl`` and ``nelem`` override the config's domain (None: the
-        config's)."""
+        """``ngl``, ``nelem`` and ``gmsh_file`` override the config's
+        domain (None: the config's). A Gmsh file is read here, and its
+        cells set ``dim`` (hexes: 3D, quads: 2D); ``nelem`` does not apply
+        to it."""
         self.config = config
         self.dtype = dtype
         self.device = resolve_device(device)
         self.name = config.get("name", "case")
 
         domain = config.get("domain", {})
-        if gmsh_file or domain.get("gmsh-file"):
-            raise NotImplementedError("Gmsh (unstructured) meshes are not "
-                                      "ported yet (ROADMAP.md queue 1 #9)")
-        box = domain.get("box-mesh", domain)
-        self.nelem = tuple(nelem if nelem is not None else box["nelem"])
-        self.dim = len(self.nelem)
-        self.lower = tuple(_eval_seq(box.get("lower", (0,) * self.dim)))
-        self.upper = tuple(_eval_seq(box.get("upper", (1,) * self.dim)))
+        self.gmsh_file = gmsh_file or domain.get("gmsh-file")
+        if self.gmsh_file:
+            from pynama_tpu_torch.mesh.gmsh import read_msh
+
+            self._gmsh_data = read_msh(self.gmsh_file)
+            self.dim = 3 if self._gmsh_data.hexes is not None else 2
+            self.nelem = self.lower = self.upper = None
+        else:
+            box = domain.get("box-mesh", domain)
+            self.nelem = tuple(nelem if nelem is not None else box["nelem"])
+            self.dim = len(self.nelem)
+            self.lower = tuple(_eval_seq(box.get("lower", (0,) * self.dim)))
+            self.upper = tuple(_eval_seq(box.get("upper", (1,) * self.dim)))
         self.ngl = int(ngl if ngl is not None else domain["ngl"])
         self.dim_w = 1 if self.dim == 2 else 3
         self.dim_s = 3 if self.dim == 2 else 6
@@ -119,6 +135,8 @@ class BaseProblem:
         self.cg_iters = []
         self.ir_rounds = []
         self._setup_done = False
+        # the solver layout: blocked on a box mesh, flat on a Gmsh mesh
+        self._blocked = not self.gmsh_file
 
     # -- hooks ----------------------------------------------------------
     def read_boundary_condition(self, bc):
@@ -143,8 +161,13 @@ class BaseProblem:
 
     # -- setup ----------------------------------------------------------
     def setup(self):
-        self.mesh = BoxMesh(nelem=self.nelem, lower=self.lower,
-                            upper=self.upper, ngl=self.ngl)
+        marks = [("start", time.perf_counter())]
+
+        def mark(name):
+            marks.append((name, time.perf_counter()))
+
+        self.mesh = self._make_mesh()
+        mark("mesh")
         self.elem = SpectralElement(self.ngl, self.dim)
         self.system = build_kle_system(self.mesh, self.elem, self.dtype,
                                        self.device)
@@ -153,16 +176,42 @@ class BaseProblem:
         if self._refine:
             self.system32 = build_kle_system(self.mesh, self.elem,
                                              torch.float32, self.device)
+        mark("system")
         self.setup_bc()
         self._setup_blocked()
+        mark("bc")
         self.setup_preconditioner()
+        mark("preconditioner")
         self._setup_done = True
-        logger.info("%s: %dD ngl=%d, %d cells, %d nodes on %s", self.name,
-                    self.dim, self.ngl, self.mesh.n_cells, self.mesh.n_nodes,
-                    self.device)
+        self.setup_s = {name: tm - prev for (_, prev), (name, tm)
+                        in zip(marks, marks[1:])}
+        logger.info("%s: %dD ngl=%d, %d cells, %d nodes on %s (setup: %s)",
+                    self.name, self.dim, self.ngl, self.mesh.n_cells,
+                    self.mesh.n_nodes, self.device,
+                    ", ".join(f"{k} {v:.1f}s"
+                              for k, v in self.setup_s.items()))
         return self
 
+    def _make_mesh(self):
+        if not self.gmsh_file:
+            return BoxMesh(nelem=self.nelem, lower=self.lower,
+                           upper=self.upper, ngl=self.ngl)
+        from pynama_tpu_torch.mesh.unstructured import (UnstructuredHexMesh,
+                                                        UnstructuredQuadMesh)
+
+        d = self._gmsh_data
+        if d.hexes is not None:
+            return UnstructuredHexMesh(d.points, d.hexes, self.ngl,
+                                       boundary_quads=d.boundary_quads)
+        return UnstructuredQuadMesh(d.points, d.quads, self.ngl,
+                                    boundary_lines=d.boundary_lines)
+
     def _gshape(self, k):
+        """The layout of a k-components-per-node field: the node grid
+        (slowest axis first) on a box mesh, flat interleaved on a Gmsh
+        mesh."""
+        if not self._blocked:
+            return (self.mesh.n_nodes * k,)
         return tuple(reversed(self.mesh.npts)) + (k,)
 
     def zero_vel(self):
@@ -175,28 +224,42 @@ class BaseProblem:
 
     def _setup_blocked(self):
         """Grid and blocked tensors of the masks/BC constants, and per
-        mask whether it frees boundary dofs (decided here, on the host)."""
-        self._solver_ngl = self.system.K.eff_ngl
-        npg = tuple(reversed(self.mesh.npts))
+        mask whether it frees boundary dofs (decided here, on the host).
+        On a Gmsh mesh both names hold the one flat tensor and the
+        corrections flag is unused (ElementOps have none)."""
+        if self._blocked:
+            self._solver_ngl = self.system.K.eff_ngl
+            npg = tuple(reversed(self.mesh.npts))
         self._frees_boundary = {}
         for name, val in self._bc_arrays.items():
-            blk = conv.to_blocked_np(val, self._solver_ngl)
-            setattr(self, name, self._tensor(val))
-            setattr(self, name + "_b", self._tensor(blk))
-            self._frees_boundary[name] = conv.mask_frees_boundary(
-                blk, self._solver_ngl, npg)
+            t = self._tensor(val)
+            setattr(self, name, t)
+            blk = val
+            self._frees_boundary[name] = True
+            if self._blocked:
+                blk = conv.to_blocked_np(val, self._solver_ngl)
+                t = self._tensor(blk)
+                self._frees_boundary[name] = conv.mask_frees_boundary(
+                    blk, self._solver_ngl, npg)
+            setattr(self, name + "_b", t)
             if self._refine and name in self._mask_names:
                 setattr(self, name + "32_b", torch.as_tensor(
                     blk, dtype=torch.float32, device=self.device))
 
     def _blk(self, grid):
+        if not self._blocked:
+            return grid
         return conv.to_blocked(grid, self._solver_ngl)
 
     def _unblk(self, xb):
+        if not self._blocked:
+            return xb
         return conv.from_blocked(xb, self._solver_ngl,
                                  tuple(reversed(self.mesh.npts)))
 
     def _bshape(self, k):
+        if not self._blocked:
+            return self._gshape(k)
         return conv.blocked_shape(self._solver_ngl,
                                   tuple(reversed(self.mesh.npts)), k)
 
@@ -218,7 +281,9 @@ class BaseProblem:
 
     def _to_solver(self, x, k):
         """A blocked, grid or flat field of k components per node in the
-        blocked layout."""
+        solver layout (flat on a Gmsh mesh, whatever the input's shape)."""
+        if not self._blocked:
+            return x.reshape(-1)
         if self._is_blocked(x, k):
             return x
         if x.dim() == 1:
@@ -226,7 +291,13 @@ class BaseProblem:
         return self._blk(x)
 
     def _restorer(self, vort):
-        """The map from the blocked layout back to vort's layout."""
+        """The map from the solver layout back to vort's layout (on a
+        Gmsh mesh: flat, or (..., k) per node as vort is shaped)."""
+        if not self._blocked:
+            if vort.dim() == 1:
+                return lambda x: x
+            lead = tuple(vort.shape[:-1])
+            return lambda x: x.reshape(lead + (-1,))
         if self._is_blocked(vort, self.dim_w):
             return lambda xb: xb
         if vort.dim() == 1:
@@ -240,12 +311,17 @@ class BaseProblem:
         return self._to_solver(vort, self.dim_w), x0_b, self._restorer(vort)
 
     def setup_preconditioner(self):
-        """Geometric-multigrid V-cycles (one per mask); Jacobi-CG under
-        'multigrid: false' or when the mesh cannot be coarsened. Under
-        refinement the V-cycles precondition the float32 inner solves, so
-        they are float32 and built from the float32 masks."""
+        """Geometric-multigrid V-cycles (one per mask), or on a Gmsh mesh
+        additive Schwarz; Jacobi-CG under 'multigrid: false', on a Gmsh
+        mesh under 'unstructured-pc: jacobi', or when the mesh cannot be
+        coarsened. Under refinement the preconditioners serve the float32
+        inner solves, so they are float32 (and the V-cycles are built
+        from the float32 masks)."""
         self._minv = {}
         if not self.config.get("multigrid", True):
+            return
+        if not self._blocked:
+            self._setup_schwarz()
             return
         from pynama_tpu_torch.solvers.multigrid import MGPreconditioner
 
@@ -272,13 +348,35 @@ class BaseProblem:
                 getattr(self, name + suffix),
                 frees_boundary=self._frees_boundary[name])
 
+    def _setup_schwarz(self):
+        """One Schwarz preconditioner per mask (solvers/schwarz.py), from
+        the system's elemental K in float64 and the numpy masks."""
+        if str(self.config.get("unstructured-pc", "schwarz")) != "schwarz":
+            logger.info("%s: unstructured-pc=jacobi (plain Jacobi-CG)",
+                        self.name)
+            return
+        from pynama_tpu_torch.solvers.schwarz import build_element_schwarz
+
+        K_el = self.system.K.A.to(torch.float64).cpu().numpy()
+        pc_dtype = torch.float32 if self._refine else self.dtype
+        for name in self._mask_names:
+            pc = build_element_schwarz(
+                self.mesh, K_el, self._bc_arrays[name].reshape(-1),
+                pc_dtype, device=self.device)
+            if pc is not None:
+                self._minv[name] = pc
+                logger.info("%s: %s-patch Schwarz for %s (%d blocks of "
+                            "%d dofs, coarse %d dofs)", self.name,
+                            pc.patches, name, pc.n_patches, pc.block_dofs,
+                            pc.coarse_dofs)
+
     # -- solves ----------------------------------------------------------
     def _solver_bc(self, t):
-        """vel_bc in the blocked layout."""
+        """vel_bc in the solver layout."""
         return self._blk(self.vel_bc(t))
 
     def _solve(self, name, vort, u_bc, x0, rtol, maxiter, restarts):
-        """One masked KLE solve with the mask ``name`` (blocked layout);
+        """One masked KLE solve with the mask ``name`` (solver layout);
         under refinement by solve_ir (``restarts`` unused)."""
         mask, corr = getattr(self, name + "_b"), self._frees_boundary[name]
         if self._refine:

@@ -9,10 +9,13 @@ virtual flux.
 The state (vorticity, KLE velocity and warm starts) stays in the blocked
 layout between steps, as BaseProblem.run keeps it; only the coupling
 reads and writes the flat interleaved grid layout, converted at the
-post-step. Gmsh domains are not ported yet.
+post-step. Gmsh domains are not ported yet: they raise (ROADMAP.md
+queue 1 #9b).
 """
 
 from math import cos, radians, sin
+
+import torch
 
 from pynama_tpu_torch.cases.base import _eval_scalar
 from pynama_tpu_torch.cases.uniform import UniformFlowProblem
@@ -26,6 +29,15 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
     velocity read_boundary_condition sets. The CG iterations of every
     post-step's flux solve are ``coupling.cg_iters``, beside the KLE
     solves' ``cg_iters``."""
+
+    def __init__(self, config, dtype=torch.float64, device=None,
+                 **overrides):
+        if overrides.get("gmsh_file") or \
+                config.get("domain", {}).get("gmsh-file"):
+            raise NotImplementedError(
+                "IBM on a Gmsh domain (the unstructured and lattice "
+                "couplings) is not ported yet (ROADMAP.md queue 1 #9b)")
+        super().__init__(config, dtype=dtype, device=device, **overrides)
 
     def read_boundary_condition(self, bc):
         """Free-stream velocity from Re, direction and longRef, or from

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from pynama_tpu_torch.device import resolve_device
+from pynama_tpu_torch.ops.assembly import make_element_op
 from pynama_tpu_torch.ops.structured import StructuredElementOp
 
 
@@ -25,6 +26,16 @@ def structured_op(A, ngl, nelem, npts, k_in, k_out, sb=1,
     return StructuredElementOp(A=_t(A, dtype, device), ngl=ngl,
                                nelem=tuple(nelem), npts=tuple(npts),
                                k_in=k_in, k_out=k_out, sb=sb)
+
+
+def element_op(A, in_dofs, out_dofs, out_size, dtype=torch.float64,
+               device=None):
+    """An ElementOp from the reference ElementOp's fields
+    (``np.asarray(op.A)``, ``op.in_dofs``, ``op.out_dofs``,
+    ``op.out_size``)."""
+    return make_element_op(np.asarray(A), np.asarray(in_dofs),
+                           np.asarray(out_dofs), int(out_size), dtype,
+                           device)
 
 
 def blocked_masks(problem, arrays, dtype=None):

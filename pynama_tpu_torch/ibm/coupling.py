@@ -39,7 +39,7 @@ from pynama_tpu_torch.solvers.cg import cg_solve
 WIN = 6  # window size per axis
 
 _UNSTRUCTURED = ("IBM on unstructured (gmsh) meshes is not ported yet "
-                 "(ROADMAP.md queue 1 #9, unstructured meshes)")
+                 "(ROADMAP.md queue 1 #9b, IBM on Gmsh domains)")
 
 
 @dataclass

@@ -1,8 +1,11 @@
 """The KLE (Kinematic Laplacian Equation) system: K u = Rw w + lifting.
 
-Port of pynama_tpu/kle.py, structured (uniform box mesh) branch. The
-full elemental operators are kept and constraints are a per-dof mask P
-(1 = free, 0 = constrained):
+Port of pynama_tpu/kle.py. Uniform box meshes take the structured
+operators (ops/structured.py, blocked layout, the stencil kernels);
+unstructured (Gmsh) meshes take the gather/GEMM/scatter ElementOps of
+ops/assembly.py on flat interleaved vectors. The full elemental
+operators are kept and constraints are a per-dof mask P (1 = free,
+0 = constrained):
 
     K_masked(u) = P K(P u) + (I-P) u                 (identity on BC rows)
     rhs         = P (Rw w - K ((I-P) u_bc)) + (I-P) u_bc
@@ -11,7 +14,7 @@ full elemental operators are kept and constraints are a per-dof mask P
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -20,6 +23,7 @@ from pynama_tpu_torch.device import resolve_device
 from pynama_tpu_torch.elements.spectral import SpectralElement
 from pynama_tpu_torch.mesh.structured import BoxMesh
 from pynama_tpu_torch.ops import conv
+from pynama_tpu_torch.ops.assembly import ElementOp, make_element_op
 from pynama_tpu_torch.ops.structured import (StructuredElementOp,
                                              pick_super_factor)
 from pynama_tpu_torch.solvers.cg import CGResult, cg_solve, sumdot
@@ -29,19 +33,21 @@ from pynama_tpu_torch.solvers.cg import CGResult, cg_solve, sumdot
 class KLESystem:
     """Velocity-recovery system: masked SPD solve via CG.
 
-    K: vel->vel, Rw: vort->vel (structured operators); diag_K: assembled
-    diagonal of K (flat), diag_K_b: blocked layout.
+    K: vel->vel, Rw: vort->vel (structured operators, or ElementOps on
+    flat vectors); diag_K: assembled diagonal of K (flat), diag_K_b:
+    blocked layout (structured only).
     """
 
-    K: StructuredElementOp
-    Rw: StructuredElementOp
+    K: Union[StructuredElementOp, ElementOp]
+    Rw: Union[StructuredElementOp, ElementOp]
     diag_K: torch.Tensor
     diag_K_b: Optional[torch.Tensor] = None
 
     def apply_masked(self, u, free_mask, corrections=True):
         """corrections=False is valid only for masks that pin every
         boundary dof (conv.mask_frees_boundary False), decided on the
-        host when the caller is set up."""
+        host when the caller is set up; an ElementOp (flat ``u``) has no
+        corrections and ignores it."""
         K = self.K
         if u.dim() > 1 and tuple(u.shape) == K.blocked_shape_in:
             Ku = K.apply_blocked(free_mask * u, corrections=corrections)
@@ -168,9 +174,9 @@ class ProjectionOperators:
     """Mass-lumped nodal projection operators Curl, SrT, DivSrT: each an
     operator apply followed by division with the lumped weights."""
 
-    Curl: StructuredElementOp
-    SrT: StructuredElementOp
-    DivSrT: StructuredElementOp
+    Curl: Union[StructuredElementOp, ElementOp]
+    SrT: Union[StructuredElementOp, ElementOp]
+    DivSrT: Union[StructuredElementOp, ElementOp]
     w_curl: torch.Tensor   # (n_nodes*dim_w,)
     w_srt: torch.Tensor    # (n_nodes*dim_s,)
     w_div: torch.Tensor    # (n_nodes*dim,)
@@ -235,10 +241,27 @@ def ns_rhs(system_ops: ProjectionOperators, vel, mu, rho, dim):
 # ----------------------------------------------------------------------
 # builders
 # ----------------------------------------------------------------------
+def _per_cell(fn, corners, chunk=256):
+    """fn(corners) of a batch of cells (elem.kle_matrices or
+    kle_operators), evaluated over chunks of cells by torch's number of
+    host threads and concatenated: numpy's einsum releases the GIL, and
+    each cell's matrices are the same bits whatever the batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    parts = [corners[i:i + chunk] for i in range(0, len(corners), chunk)]
+    with ThreadPoolExecutor(max(1, min(len(parts),
+                                       torch.get_num_threads()))) as pool:
+        outs = list(pool.map(fn, parts))
+    return tuple(np.concatenate(a) for a in zip(*outs))
+
+
+def _structured(mesh):
+    """Whether the mesh takes the structured (blocked stencil) operators:
+    a uniform box mesh; anything else takes ElementOps."""
+    return isinstance(mesh, BoxMesh) and mesh.uniform
+
+
 def _structured_op_factory(mesh, dtype, device):
-    if not (isinstance(mesh, BoxMesh) and mesh.uniform):
-        raise NotImplementedError(
-            "only uniform box meshes are ported (ROADMAP.md queue 1 #9)")
     device = resolve_device(device)
     sb = pick_super_factor(tuple(mesh.nelem), mesh.ngl, mesh.dim)
 
@@ -252,12 +275,22 @@ def _structured_op_factory(mesh, dtype, device):
     return sop
 
 
-def build_kle_system(mesh: BoxMesh, elem: SpectralElement,
-                     dtype=torch.float64, device=None):
-    """The matrix-free KLE system of a uniform box mesh (device None:
-    the card)."""
-    sop = _structured_op_factory(mesh, dtype, device)
+def build_kle_system(mesh, elem: SpectralElement, dtype=torch.float64,
+                     device=None):
+    """The matrix-free KLE system (device None: the card): structured
+    operators on a uniform box mesh, per-element ElementOps (batched
+    elemental matrices of each cell's geometry) otherwise."""
     dim, dim_w = mesh.dim, mesh.dim_w
+    if not _structured(mesh):
+        device = resolve_device(device)
+        vdofs = mesh.cell_dofs(dim)
+        K_el, Rw_el, _ = _per_cell(elem.kle_matrices, mesh.cell_corners)
+        n_vel = mesh.n_nodes * dim
+        K = make_element_op(K_el, vdofs, vdofs, n_vel, dtype, device)
+        Rw = make_element_op(Rw_el, mesh.cell_dofs(dim_w), vdofs, n_vel,
+                             dtype, device)
+        return KLESystem(K=K, Rw=Rw, diag_K=K.diagonal())
+    sop = _structured_op_factory(mesh, dtype, device)
     K_el, Rw_el, _ = elem.kle_matrices(mesh.cell_corners[0])
     K = sop(K_el, dim, dim)
     Rw = sop(Rw_el, dim_w, dim)
@@ -267,20 +300,33 @@ def build_kle_system(mesh: BoxMesh, elem: SpectralElement,
                      diag_K_b=K.to_blocked(diag.reshape(gshape)))
 
 
-def build_operators(mesh: BoxMesh, elem: SpectralElement,
-                    dtype=torch.float64, device=None):
-    """The nodal projection operators of a uniform box mesh (device None:
-    the card)."""
+def build_operators(mesh, elem: SpectralElement, dtype=torch.float64,
+                    device=None):
+    """The nodal projection operators (device None: the card); blocked
+    weights only on a uniform box mesh."""
     device = resolve_device(device)
-    sop = _structured_op_factory(mesh, dtype, device)
     dim, dim_w, dim_s = mesh.dim, mesh.dim_w, mesh.dim_s
     n = mesh.n_nodes
-    SrT_el, Div_el, Curl_el, wvec_el = elem.kle_operators(
-        mesh.cell_corners[0])
-    wvec_el = np.broadcast_to(wvec_el, (mesh.n_cells, elem.nnode))
-    Curl = sop(Curl_el, dim, dim_w)
-    SrT = sop(SrT_el, dim, dim_s)
-    Div = sop(Div_el, dim_s, dim)
+    structured = _structured(mesh)
+    if structured:
+        sop = _structured_op_factory(mesh, dtype, device)
+        SrT_el, Div_el, Curl_el, wvec_el = elem.kle_operators(
+            mesh.cell_corners[0])
+        wvec_el = np.broadcast_to(wvec_el, (mesh.n_cells, elem.nnode))
+        Curl = sop(Curl_el, dim, dim_w)
+        SrT = sop(SrT_el, dim, dim_s)
+        Div = sop(Div_el, dim_s, dim)
+    else:
+        vdofs = mesh.cell_dofs(dim)
+        wdofs = mesh.cell_dofs(dim_w)
+        sdofs = mesh.cell_dofs(dim_s)
+        SrT_el, Div_el, Curl_el, wvec_el = _per_cell(elem.kle_operators,
+                                                     mesh.cell_corners)
+        Curl = make_element_op(Curl_el, vdofs, wdofs, n * dim_w, dtype,
+                               device)
+        SrT = make_element_op(SrT_el, vdofs, sdofs, n * dim_s, dtype,
+                              device)
+        Div = make_element_op(Div_el, sdofs, vdofs, n * dim, dtype, device)
 
     # assembled lumped node weights, then expanded per dof family
     w_node = np.zeros(n)
@@ -293,6 +339,8 @@ def build_operators(mesh: BoxMesh, elem: SpectralElement,
 
     def expand_blocked(k):
         """Blocked weights with pad slots = 1 (division-safe)."""
+        if not structured:
+            return None
         eff = Curl.eff_ngl
         npg = tuple(reversed(mesh.npts))
         g = np.repeat(w_node, k).reshape(npg + (k,))

@@ -4,7 +4,11 @@ Port of pynama_tpu/ops/structured.py (conv path). An operator with one
 shared elemental matrix A on a uniform box mesh is applied as a blocked
 stencil contraction (ops/conv.py); ``grid_gather`` / ``grid_scatter_add``
 give the element-wise view used by ``diagonal()`` and the grid-path
-multigrid transfers, here as plain indexing and ``index_add_``.
+multigrid transfers, here as plain indexing and a scatter-add through
+a contributor table (ops/assembly.py): cells share their boundary nodes,
+and on CUDA ``index_add_``'s atomics summed those in a different order
+from call to call (tests/test_torch_cuda.py), where the table sums each
+node's values in one fixed order, on every call and device alike.
 """
 
 from functools import lru_cache
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from pynama_tpu_torch.ops import conv
+from pynama_tpu_torch.ops.assembly import contributor_table, scatter_add
 
 
 def pick_super_factor(nelem, ngl, dim):
@@ -60,6 +65,14 @@ def _index(grid, N, ncells, step, offset):
     return torch.as_tensor(idx, device=grid.device)
 
 
+@lru_cache(maxsize=64)
+def _cell_node_table(N, ncells, step, offset, grid_pts):
+    """The contributor table of _cell_node_index's ids."""
+    return contributor_table(
+        _cell_node_index(N, ncells, step, offset, grid_pts),
+        int(np.prod(grid_pts)))
+
+
 def grid_gather(grid, N, ncells, step, offset):
     """Element-local nodal values (n_cells, N**dim * k) from a node grid
     (..., k) whose axes are slowest-first; local node lexicographic (x
@@ -72,10 +85,11 @@ def grid_gather(grid, N, ncells, step, offset):
 def grid_scatter_add(out_grid, vals, N, ncells, step, offset):
     """Adjoint of grid_gather: out_grid + assembled (n_cells, N**dim*k)."""
     k = out_grid.shape[-1]
-    idx = _index(out_grid, N, ncells, step, offset)
-    out = out_grid.reshape(-1, k).clone()
-    out.index_add_(0, idx.reshape(-1), vals.reshape(-1, k))
-    return out.reshape(out_grid.shape)
+    table = _cell_node_table(N, tuple(ncells), step, tuple(offset),
+                             tuple(out_grid.shape[:-1]))
+    out = scatter_add(vals.reshape(-1, k),
+                      torch.as_tensor(table, device=out_grid.device))
+    return out_grid + out.reshape(out_grid.shape)
 
 
 class StructuredElementOp:

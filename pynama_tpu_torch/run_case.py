@@ -4,7 +4,7 @@ Port of pynama_tpu/run_case.py:
 
   python -m pynama_tpu_torch.run_case -case <name> [-device cuda|cpu]
          [-test kle|chart|operators|chartkle] [-log LEVEL] [-ngl N]
-         [-nelem N ...] [-resume ckpt] [-dtype float32|float64]
+         [-nelem N ...] [-gmsh FILE] [-resume ckpt] [-dtype float32|float64]
          [-max-steps N] [-kle-rtol R] [-max-dt DT] [-opt KEY=VALUE ...]
 
 Modes:
@@ -20,8 +20,10 @@ The run is on the card unless ``-device cpu`` is given; without a card
 the driver exits with an error. Charts need matplotlib: without it they
 are skipped with a warning, and everything else is still written. Case
 configs are YAML files of the reference's schema, looked up in
-./configs/ or by path. ``-sharded`` (distributed runs) and ``-gmsh``
-(unstructured meshes) are not ported yet and raise NotImplementedError.
+./configs/ or by path. ``-gmsh FILE`` (or a config's domain
+``gmsh-file``) runs the production run on an unstructured Gmsh mesh;
+the -test modes on a Gmsh mesh and ``-sharded`` (distributed runs) are
+not ported yet and raise NotImplementedError.
 """
 
 import argparse
@@ -359,8 +361,8 @@ def main(argv=None):
     ap.add_argument("-ngl", type=int, default=None)
     ap.add_argument("-nelem", type=int, nargs="+", default=None)
     ap.add_argument("-gmsh", default=None, metavar="FILE",
-                    help="an unstructured Gmsh mesh (not ported yet: "
-                         "raises NotImplementedError)")
+                    help="run the case on an unstructured Gmsh mesh "
+                         "(overrides the config's domain)")
     ap.add_argument("-max-ngl", type=int, default=9)
     ap.add_argument("-resume", default=None, help="checkpoint to resume from")
     ap.add_argument("-dtype", default=None, choices=["float32", "float64"])
@@ -401,6 +403,9 @@ def main(argv=None):
             f"({', '.join(sorted(analytic))}); got '{args.case}'"
         )
 
+    if args.test and (args.gmsh or config.get("domain", {}).get("gmsh-file")):
+        raise NotImplementedError("-test modes on a Gmsh mesh are not "
+                                  "ported yet (ROADMAP.md queue 1 #9b)")
     if args.test == "kle":
         return kle_field_dump(args, config)
     if args.test == "chart":

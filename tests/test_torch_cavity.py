@@ -61,8 +61,11 @@ def test_unported_configs_and_missing_cuda_raise():
     cfg7 = {**cfg, "domain": {"ngl": 3, "box-mesh": {"nelem": [7, 7]}}}
     with pytest.raises(NotImplementedError, match="padded"):
         CavityProblem(cfg7, device="cpu").setup()
+    # a gmsh-file domain is ported: the constructor reads the file, so a
+    # missing one raises FileNotFoundError (tests/test_torch_gmsh_*.py run
+    # real ones; IBM on one still raises NotImplementedError)
     gm = {**cfg, "domain": {"ngl": 3, "gmsh-file": "x.msh"}}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         CavityProblem(gm, device="cpu")
     if not torch.cuda.is_available():
         # entry points default to the card and never fall back quietly

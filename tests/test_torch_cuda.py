@@ -9,7 +9,9 @@ its history on the card; the immersed-boundary path through the kernels
 against the plain version, and stencil2d's float64 instance at its
 non-square and 8-channel shapes; a single-mask resume bit for bit, and
 kle-solver: gmres against the CPU; the breakdown kernel in every mode
-against its plain version, and under a CUDA graph.
+against its plain version, and under a CUDA graph; a Gmsh cavity
+(ElementOps, Schwarz) repeated bit for bit and against the CPU, and the
+scatter of the multigrid's grid transfers repeated bit for bit.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -689,3 +691,74 @@ def test_breakdown_graph_replays_eager_chain(cuda, mode, prec):
     assert stencil.BREAKDOWN.launches == before
     assert torch.isfinite(eager).all() and float(eager.abs().max()) > 0
     assert torch.equal(out, eager)
+
+
+# ----------------------------------------------------------------------
+# unstructured Gmsh meshes (ElementOps and Schwarz: no kernel of their
+# own) and the scatters with colliding indices
+# ----------------------------------------------------------------------
+def test_gmsh_cavity_on_card_is_bitwise_repeatable(cuda, tmp_path):
+    """An 8x8 distorted Gmsh cavity (float64, vertex-star Schwarz), 3
+    steps twice on the card: bit for bit, with the same CG iterations
+    (the ElementOps' scatter sums a fixed contributor table, never with
+    atomics); and within 1e-8 of the same run on the CPU."""
+    import chip_smoke
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    path = str(tmp_path / "c8.msh")
+    pts, quads = chip_smoke.box_corner_mesh(8, 8, distort=0.15 / 8, seed=1)
+    chip_smoke.write_msh22(path, pts, quads, 3)
+    cfg = chip_smoke.gmsh_cavity_config(path, 8)
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        p = CavityProblem(cfg, device=dev).setup()
+        runs.append((p.run(max_steps=3), p.cg_iters))
+    ((w1, t1, n1), i1), ((w2, t2, n2), i2), ((w3, _, n3), _) = runs
+    assert w1.device.type == "cuda" and n1 == n2 == n3 == 3
+    assert torch.equal(w1, w2) and t1 == t2 and i1 == i2
+    rel = float(torch.linalg.norm(w1.cpu() - w3) / torch.linalg.norm(w3))
+    assert rel <= 1e-8, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_scatter_add_repeats_are_bitwise_equal(cuda, dtype):
+    """ops/structured.py grid_scatter_add on the 384x384 cavity's fine
+    node grid: every vertex shared by 4 cells, 50 repeats bit for bit
+    (with index_add_ they were not: its atomics sum in any order)."""
+    from pynama_tpu_torch.ops.structured import grid_scatter_add
+
+    N, ne = 3, (384, 384)
+    npts = tuple(n * (N - 1) + 1 for n in ne)
+    rng = np.random.default_rng(1)
+    vals = torch.as_tensor(rng.normal(size=(ne[0] * ne[1], N * N * 2)),
+                           dtype=dtype, device=cuda)
+    out = torch.zeros(npts[::-1] + (2,), dtype=dtype, device=cuda)
+    first = grid_scatter_add(out, vals, N, ne, N - 1, (0, 0))
+    for _ in range(49):
+        assert torch.equal(grid_scatter_add(out, vals, N, ne, N - 1,
+                                            (0, 0)), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_grid_transfers_repeat_bitwise(cuda, dtype):
+    """The multigrid's grid-layout _prolong/_restrict pair (grid_scatter_add
+    inside) at the 384x384 cavity's fine jump, 10 times: bit for bit
+    (with index_add_ they were not)."""
+    from pynama_tpu_torch.elements.spectral import SpectralElement
+    from pynama_tpu_torch.mesh.structured import BoxMesh
+    from pynama_tpu_torch.solvers.multigrid import MGPreconditioner
+
+    mesh = BoxMesh(nelem=(384, 384), lower=(0, 0), upper=(1, 1), ngl=3)
+    mg = MGPreconditioner(mesh, SpectralElement(3, 2), dtype=dtype,
+                          device=cuda)
+    lvl, nxt = mg.levels[0], mg.levels[1].mesh
+    rng = np.random.default_rng(2)
+    xc = torch.as_tensor(rng.normal(size=tuple(reversed(nxt.npts)) + (2,)),
+                         dtype=dtype, device=cuda)
+    rf = torch.as_tensor(
+        rng.normal(size=tuple(reversed(mesh.npts)) + (2,)), dtype=dtype,
+        device=cuda)
+    p0, r0 = mg._prolong(lvl, nxt, xc), mg._restrict(lvl, nxt, rf)
+    for _ in range(9):
+        assert torch.equal(mg._prolong(lvl, nxt, xc), p0)
+        assert torch.equal(mg._restrict(lvl, nxt, rf), r0)
