@@ -117,12 +117,13 @@ Phases, each timed; any failure exits non-zero:
    just before each leg's first call and read just after its last; a
    line first says whether yaml, h5py and matplotlib are installed:
    13a -case cavity, configs/cavity.yaml as shipped (30x30 Q2, float64,
-       7,442 velocity dofs), -max-steps 4 -opt save-n-steps=2: the
-       metrics file, the step-4 checkpoint (its vorticity bit for bit
+       7,442 velocity dofs), -max-steps 2 -opt save-n-steps=1: the
+       metrics file, the step-2 checkpoint (its vorticity bit for bit
        the run's final one) and, where h5py is installed,
-       vec-data-00004.h5 (the same);
-   13b 13a's run to step 2 (-opt save-n-steps=2), then -resume from its
-       checkpoint to step 4:
+       vec-data-00002.h5 (the same); cut from 4 steps to keep the
+       script's time as phase 15 was added;
+   13b 13a's run to step 1 (-opt save-n-steps=1), then -resume from its
+       checkpoint to step 2:
        a resumed cavity warm-starts both of its solves from the
        checkpoint's one velocity (as the reference's), so the final
        vorticity matches 13a's within CLI_RESUME_FACTOR x the KLE rtol,
@@ -177,7 +178,36 @@ Phases, each timed; any failure exits non-zero:
        under the sync debug mode and the profiler: host syncs, kernels
        and device time per CG iteration; and 14a's initial RHS at its own
        size on a problem set up with device="cpu": RHS and velocities
-       within 1e-8 of the card's, CG iterations side by side.
+       within 1e-8 of the card's, CG iterations side by side;
+15. immersed bodies on Gmsh domains (float64; the Gmsh path of phase 14
+   with UnstructuredIBMCoupling for a static body and LatticeIBMCoupling
+   for a moving one, plain torch: every launch count, set to 0 just
+   before each run and read just after, must stay 0); graded meshes are
+   tensor products of axes uniform at 'h-min' over a core box around
+   the body and growing by at most x1.1 an element outside it
+   (graded_axis), written as Gmsh v2.2 files to a temporary directory.
+   Each run fails unless the coupling is the expected one, the
+   vorticity finite, the slip max |H u - U_body| < 1e-6 after every
+   step, the mesh's boundary nodes (its own numbering) at the far field
+   within 1e-12 u_ref, the last cd finite and > 0 (and a moving body
+   moved); each records setup seconds by stage and the coupling's
+   build, ms per step, KLE CG iterations per solve, flux-CG iterations
+   per post-step, cd and cl, and peak memory:
+   15a the Re-40 geometry (ibm_re40_config(): [-6,12]x[-6,6], kle-rtol
+       1e-8), core [-1.5,4.5]x[-1.5,1.5] at 'h-min' 1/8 (the 144x96
+       box's width): 84x56 quads, 38,194 velocity dofs, 3 steps;
+   15b configs/ibm-dynamic.yaml's geometry ([-4,4]^2, Re 140), core
+       [-1.5,1.5]^2 at 'h-min' 1/6 (its 48x48 width): 38x38 quads,
+       11,858 velocity dofs, 3 steps;
+   15c a uniform 12x12 Gmsh box of [-3,3]^2 with ibm_small_config's
+       material, static and moving, 2 steps on the card and on the CPU
+       (vorticity within 1e-8, KLE and flux CG lists equal); 15a's and
+       15b's first post-steps again: bitwise equal, the same iterations;
+   15d configs/ibm-static.yaml's 48x48 box written as a uniform Gmsh
+       file ('h-min' 6/48), 3 steps: UnstructuredIBMCoupling's windows
+       equal to IBMCoupling's on 12a's mesh as node -> weight maps within
+       1e-14, and the cd history within IBM_GMSH_BOX_CD_LIMIT of 12a's
+       record (no second box run).
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -260,6 +290,9 @@ IBM_CONFIGS = {
 # solve stops within the KLE rtol, and this many rtols bound what two
 # resumed steps leave in the vorticity
 CLI_RESUME_FACTOR = 100
+# phase 13a: the shipped cavity's steps (saves every half), 13b resumes
+# from the half-way checkpoint; cut from 4 to 2 when phase 15 was added
+CLI_CAVITY_STEPS = 2
 # phase 13e: GMRES against CG on the same system, in KLE rtols. GMRES
 # stops on the Jacobi-preconditioned residual, so its velocity lies within
 # cond(M A) x rtol of the system's solution: 17.2 rtols (1.72e-9) in a CPU
@@ -1413,16 +1446,17 @@ def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
 
     legs = {}
     d = os.path.join(tmp, "13a")
+    last = CLI_CAVITY_STEPS
     calls, n, shapes, sec = run_cli_leg(torch, stencil, [
-        ["-case", "cavity", "-max-steps", "4", "-opt", "save-n-steps=2",
-         "-opt", f"save-dir={d}"]])
+        ["-case", "cavity", "-max-steps", str(last), "-opt",
+         f"save-n-steps={last // 2}", "-opt", f"save-dir={d}"]])
     (metrics, pa, saves), = calls
     with open(os.path.join(d, "cavity-metrics.yaml")) as f:
         on_disk = yaml.safe_load(f)
     ck = load_checkpoint(os.path.join(d, "checkpoint.npz"))
     final = pa.vort.cpu().numpy()
     dofs = pa.mesh.n_nodes * pa.dim
-    h5 = os.path.join(d, "vec-data-00004.h5")
+    h5 = os.path.join(d, f"vec-data-{last:05d}.h5")
     h5_equal = None
     if importlib.util.find_spec("h5py") is not None:
         import h5py
@@ -1440,27 +1474,29 @@ def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
                1e3 * (b - a) for a, b in zip(pa.step_marks,
                                              pa.step_marks[1:])]}
     out["cli_cavity"] = res
-    print(f"  steps 2-4 {[round(x, 1) for x in res['step_ms']]} ms (with "
-          f"the step-2 save), {res['kle_solves']} KLE solves", flush=True)
+    print(f"  steps 2-{last} {[round(x, 1) for x in res['step_ms']]} ms "
+          f"(with the saves), {res['kle_solves']} KLE solves", flush=True)
     print(f"  {dofs} velocity dofs, {pa.dtype}: steps {metrics['steps']} "
           f"(file {on_disk['steps']}), checkpoint step {ck['step']}, "
           f"checkpoint vorticity bitwise {res['checkpoint_vort_bitwise']}, "
-          f"vec-data-00004.h5 bitwise {h5_equal}, {n} stencil2d launches, "
+          f"{os.path.basename(h5)} bitwise {h5_equal}, {n} stencil2d "
+          "launches, "
           f"{sec:.1f} s", flush=True)
     if (dofs, pa.dtype, tuple(pa.nelem)) != (7442, torch.float64, (30, 30)):
         fail(f"13a: not configs/cavity.yaml's cavity: {dofs} dofs")
-    if not (metrics["steps"] == on_disk["steps"] == ck["step"] == 4
+    if not (metrics["steps"] == on_disk["steps"] == ck["step"] == last
             and res["checkpoint_vort_bitwise"] and h5_equal is not False
             and n > 0):
         fail("13a: metrics, checkpoint or fields wrong, or no launches")
     legs["13a"] = (n, shapes)
 
     d1, d2 = os.path.join(tmp, "13b"), os.path.join(tmp, "13b-resumed")
+    half = last // 2
     calls, n, shapes, sec = run_cli_leg(torch, stencil, [
-        ["-case", "cavity", "-max-steps", "2", "-opt", "save-n-steps=2",
-         "-opt", f"save-dir={d1}"],
+        ["-case", "cavity", "-max-steps", str(half), "-opt",
+         f"save-n-steps={half}", "-opt", f"save-dir={d1}"],
         ["-case", "cavity", "-resume", os.path.join(d1, "checkpoint.npz"),
-         "-max-steps", "4", "-opt", f"save-dir={d2}"]])
+         "-max-steps", str(last), "-opt", f"save-dir={d2}"]])
     pb = calls[1][1]
     rel = rel_diff(torch, pb.vort, pa.vort)
     limit = CLI_RESUME_FACTOR * pb.kle_rtol
@@ -1468,10 +1504,10 @@ def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
            "limit": limit, "bitwise": bool(torch.equal(pb.vort, pa.vort)),
            "stencil_launches": n, "seconds": sec}
     out["cli_cavity_resume"] = res
-    print(f"  resumed at step 2 to step {res['steps']}: vorticity vs 13a "
+    print(f"  resumed at step {half} to step {res['steps']}: vorticity vs 13a "
           f"{rel:.3e} (limit {limit:g}), bitwise {res['bitwise']}, {n} "
           f"stencil2d launches, {sec:.1f} s", flush=True)
-    if res["steps"] != 4 or not rel <= limit:
+    if res["steps"] != last or not rel <= limit:
         fail(f"13b: resumed cavity vs 13a {rel:.3e} > {limit:g}")
     legs["13b"] = (n, shapes)
 
@@ -2109,6 +2145,417 @@ def phase_gmsh_legs(torch, stencil, phase, out):
               lambda: gmsh_cpu_leg(torch, tmp, out, p14, first))
 
 
+# ----------------------------------------------------------------------
+# phase 15: immersed bodies on Gmsh domains (no kernel: the Gmsh path and
+# the couplings are plain torch)
+# ----------------------------------------------------------------------
+GRADING = 1.1  # the most an element is wider than its inner neighbour
+# 15a: the Re-40 geometry; the core at the 144x96 box's element width
+IBM_GMSH_RE40 = {"core": ((-1.5, 4.5), (-1.5, 1.5)), "h-min": "1/8"}
+# 15b: ibm-dynamic.yaml's geometry; the core at its 48x48 element width
+IBM_GMSH_DYN = {"core": ((-1.5, 1.5), (-1.5, 1.5)), "h-min": "1/6"}
+IBM_GMSH_STEPS = 3
+# 15d: the Gmsh coupling's windows against the box coupling's, the same
+# points and nodes: node -> weight, absolute
+IBM_GMSH_WINDOW_LIMIT = 1e-14
+# 15d: the cd history on the 48x48 Gmsh box against 12a's on the box
+# mesh, relative per step. The Schwarz-CG and the multigrid-CG KLE
+# solves agree only to kle-rtol (1e-10), and cd divides the flux by dt:
+# the CPU run of the same pair (ibm_gmsh_box_cd_cpu()) gave
+# IBM_GMSH_BOX_CD_CPU; the bound is 100 times it
+IBM_GMSH_BOX_CD_CPU = 2.8893521544552812e-09
+IBM_GMSH_BOX_CD_LIMIT = 100 * IBM_GMSH_BOX_CD_CPU
+
+
+def graded_axis(lo, hi, core_lo, core_hi, width, growth=GRADING):
+    """Element edges along one axis: uniform at ``width`` over [core_lo,
+    core_hi]; outside it, out to lo and to hi, the fewest elements whose
+    widths grow from ``width`` by ``growth`` an element reach the
+    boundary, and their common ratio is then lowered (to r in [1,
+    growth], by bisection) so that the last ends on it: no element is
+    narrower than ``width`` nor more than ``growth`` times its inner
+    neighbour."""
+    import numpy as np
+
+    n = int(round((core_hi - core_lo) / width))
+    core = core_lo + width * np.arange(n + 1)
+
+    def widths(r, m):
+        return width * r ** np.arange(1, m + 1)
+
+    def side(d):
+        if d <= 0:
+            return np.zeros(0)
+        m = 1
+        while widths(growth, m).sum() < d:
+            m += 1
+        lo_r, hi_r = 1.0, growth
+        if widths(1.0, m).sum() > d:  # a gap under m widths: uniform
+            w = np.full(m, d / m)
+        else:
+            for _ in range(200):
+                mid = 0.5 * (lo_r + hi_r)
+                lo_r, hi_r = ((mid, hi_r) if widths(mid, m).sum() < d
+                              else (lo_r, mid))
+            w = widths(hi_r, m)
+        edges = np.cumsum(w)
+        edges[-1] = d
+        return edges
+
+    return np.concatenate([core_lo - side(core_lo - lo)[::-1], core,
+                           core_hi + side(hi - core_hi)])
+
+
+def tensor_quad_mesh(xs, ys):
+    """Corner points and ccw quads of the tensor-product grid xs x ys
+    (box_corner_mesh's numbering)."""
+    import numpy as np
+
+    X, Y = np.meshgrid(xs, ys, indexing="xy")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1)], axis=1)
+    W = len(xs)
+    v0 = (np.arange(len(ys) - 1)[:, None] * W
+          + np.arange(W - 1)[None, :]).reshape(-1)
+    return pts, np.stack([v0, v0 + 1, v0 + 1 + W, v0 + W], axis=1)
+
+
+def ibm_gmsh_mesh(path, lower, upper, core, h_min):
+    """A graded Gmsh v2.2 file around ``core`` ((x lo, x hi), (y lo,
+    y hi)) at element width h_min inside it; returns (quads per axis)."""
+    axes = [graded_axis(lower[i], upper[i], core[i][0], core[i][1], h_min)
+            for i in range(2)]
+    pts, quads = tensor_quad_mesh(*axes)
+    write_msh22(path, pts, quads, 3)
+    return [len(a) - 1 for a in axes]
+
+
+def ibm_gmsh_config(cfg, path, h_min):
+    """An IBM config on the Gmsh file ``path``, 'h-min' h_min (a
+    string, as in a YAML file)."""
+    return {**cfg, "domain": {"ngl": 3, "gmsh-file": path, "h-min": h_min}}
+
+
+def ibm_small_gmsh(tmp, kind):
+    """15c's config: ibm_small_config's material and body on a uniform
+    12x12 Gmsh box of [-3,3]^2, 'h-min' 6/12; the body moving for
+    ``kind`` "dynamic"."""
+    import numpy as np
+
+    path = os.path.join(tmp, "ibm12.msh")
+    if not os.path.exists(path):
+        write_msh22(path, *tensor_quad_mesh(np.linspace(-3, 3, 13),
+                                            np.linspace(-3, 3, 13)), 3)
+    cfg = ibm_gmsh_config(ibm_small_config(12), path, "6/12")
+    if kind == "dynamic":
+        cfg["bodies"] = [{**cfg["bodies"][0], "vel": "dynamic"}]
+    return cfg
+
+
+def ibm_box_gmsh(tmp):
+    """15d's config: configs/ibm-static.yaml with its 48x48 box of
+    [-3,3]^2 written as a uniform Gmsh file, 'h-min' 6/48."""
+    import numpy as np
+
+    path = os.path.join(tmp, "ibm48.msh")
+    axis = np.linspace(-3, 3, 49)
+    write_msh22(path, *tensor_quad_mesh(axis, axis), 3)
+    return ibm_gmsh_config(IBM_CONFIGS["ibm-static"], path, "6/48")
+
+
+def ibm_gmsh_box_cd_cpu():
+    """15d's pair on the CPU, 3 steps each: the source of
+    IBM_GMSH_BOX_CD_CPU (the largest relative difference of the cd
+    histories).
+
+        python3 -c "import chip_smoke; print(chip_smoke.ibm_gmsh_box_cd_cpu())"
+    """
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg in (IBM_CONFIGS["ibm-static"], ibm_box_gmsh(tmp)):
+            p = ImmersedBoundaryProblem(cfg, device="cpu").setup()
+            p.run(max_steps=IBM_GMSH_STEPS)
+            runs.append(p.cd_history)
+    return max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(*runs))
+
+
+def ibm_gmsh_run(torch, stencil, p, key, out, coupling_cls,
+                 steps=IBM_GMSH_STEPS):
+    """setup() + run(max_steps=steps) of an IBM problem on a Gmsh domain,
+    the launch counts set to 0 just before and read just after (0 they
+    must stay); fails unless the coupling is ``coupling_cls``, the
+    vorticity finite, the slip max |H u - U_body| below SLIP_LIMIT after
+    every step, the mesh's boundary nodes (its own numbering) at the far
+    field within LAYOUT_LIMIT u_ref, the last cd finite and positive, and
+    a moving body moved. Returns (the problem, the first post-step's
+    arguments, results and iterations) for 15c's repeat."""
+    marks, first = [], {}
+    post = p._post_step
+
+    def recorded(*args):
+        k, kf = len(p.cg_iters), len(p.coupling.cg_iters)
+        if first:
+            return post(*args)
+        saved = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        res = post(*args)
+        first.update(args=saved, out=tuple(r.clone() for r in res),
+                     iters=p.cg_iters[k:], flux=p.coupling.cg_iters[kf:])
+        return res
+
+    def callback(n, t, dt, vort, vel):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), len(p.cg_iters),
+                      len(p.coupling.cg_iters), t, vel.reshape(-1).clone()))
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
+    p._post_step = recorded
+    vort, t, n = p.run(max_steps=steps, callback=callback)
+    torch.cuda.synchronize()
+    p._post_step = post
+    launches = {k.name: k.launches for k in stencil.KERNELS.values()}
+    if not isinstance(p.coupling, coupling_cls):
+        fail(f"{key}: the coupling is {type(p.coupling).__name__}, not "
+             f"{coupling_cls.__name__}")
+    if n != steps or len(marks) != steps:
+        fail(f"{key}: expected {steps} accepted steps, got {n}")
+    if not bool(torch.isfinite(vort).all()):
+        fail(f"{key}: final vorticity is not finite")
+    if any(launches.values()):
+        fail(f"{key}: the Gmsh path launched stencil kernels {launches}")
+    slips = []
+    for m in marks:
+        X, Ub = p._body_state(m[3])
+        nodes, w = p.coupling.windows(X)
+        slips.append(float((p.coupling.interp(m[4], nodes, w) - Ub)
+                           .abs().max()))
+    u_inf = torch.as_tensor(p.cte_value, dtype=p.dtype, device=p.device)
+    dev = (p.vel.reshape(-1, 2) - u_inf).abs().amax(dim=1)
+    bn = torch.as_tensor(p.mesh.boundary_nodes.astype("int64"),
+                         device=p.device)
+    edge, field = float(dev[bn].max()), float(dev.max())
+    cd = p.cd_history[-1][0]
+    moved = float(abs(p.body.coords_at(t) - p.body.coords_at(0.0)).max())
+    starts = [(t_setup, 0, 0)] + [m[:3] for m in marks]
+    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(starts, starts[1:])]
+    flux = p.coupling.cg_iters
+    res = {
+        "coupling": type(p.coupling).__name__, "cells": p.mesh.n_cells,
+        "nodes": p.mesh.n_nodes, "velocity_dofs": p.mesh.n_nodes * p.dim,
+        "lagrange_points": p.body.n_nodes, "h": p.h, "steps": n, "t": t,
+        "dt_history": p.dt_history, "setup_s": t_setup - t0,
+        "setup_split_s": {**p.setup_s, "coupling": p.coupling_s},
+        "step_ms": step_ms, "first_step_incl_initial_post_step": True,
+        "ms_per_step_2_3": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+        "kle_solves": len(p.cg_iters), "cg_iters": list(p.cg_iters),
+        "cg_iters_per_solve": sum(p.cg_iters) / len(p.cg_iters),
+        "flux_cg_iters": list(flux),
+        "flux_cg_iters_per_post_step": sum(flux) / len(flux),
+        "cd_history": p.cd_history, "cl_history": p.cl_history,
+        "slip_per_step": slips, "boundary_minus_far_field": edge,
+        "max_minus_far_field": field, "body_moved": moved,
+        "stencil_launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    out[key] = res
+    print(f"  {res['coupling']}; {res['cells']} cells, {res['nodes']} "
+          f"nodes, {res['velocity_dofs']} velocity dofs, "
+          f"{res['lagrange_points']} Lagrange points at h {p.h:.6g}; setup "
+          f"{res['setup_s']:.2f} s (" + ", ".join(
+              f"{k} {v:.2f}" for k, v in res["setup_split_s"].items())
+          + ")", flush=True)
+    print(f"  steps {[round(x, 1) for x in step_ms]} ms (step 1 with the "
+          f"initial post-step), dt {p.dt_history}; {len(p.cg_iters)} KLE "
+          f"solves, {res['cg_iters_per_solve']:.1f} CG iterations a solve "
+          f"(max {max(p.cg_iters)}); flux CG {flux}; peak "
+          f"{res['peak_mem_gib']:.2f} GiB; stencil launches {launches}",
+          flush=True)
+    print(f"  cd {[c[0] for c in p.cd_history]}, cl "
+          f"{[c[0] for c in p.cl_history]}; slip per step "
+          + ", ".join(f"{x:.3e}" for x in slips)
+          + f" (limit {SLIP_LIMIT:g}); boundary max |u - u_inf| {edge:.3e} "
+          f"(limit {LAYOUT_LIMIT:g} u_ref), over the field {field:.3e}; "
+          f"body moved {moved:.4g}", flush=True)
+    if not max(slips) < SLIP_LIMIT:
+        fail(f"{key}: slip at the body {max(slips):.3e}")
+    if not edge <= LAYOUT_LIMIT * p.u_ref or not field > 0.1 * p.u_ref:
+        fail(f"{key}: boundary nodes vs the far field {edge:.3e}, field "
+             f"{field:.3e}")
+    if not (math.isfinite(cd) and cd > 0):
+        fail(f"{key}: last cd {cd}")
+    if p.body.is_moving and not moved > 0:
+        fail(f"{key}: the body did not move")
+    return p, first
+
+
+def ibm_gmsh_leg(torch, stencil, tmp, out, key, cfg, spec, cls,
+                 coupling_cls):
+    """15a or 15b: the graded mesh of ``spec`` over cfg's box domain."""
+    from pynama_tpu_torch.cases.base import _eval_scalar
+
+    box = cfg["domain"]["box-mesh"]
+    path = os.path.join(tmp, f"{key}.msh")
+    quads = ibm_gmsh_mesh(path, box["lower"], box["upper"], spec["core"],
+                          _eval_scalar(spec["h-min"]))
+    p = cls(ibm_gmsh_config(cfg, path, spec["h-min"]))
+    res = ibm_gmsh_run(torch, stencil, p, key, out, coupling_cls)
+    out[key].update(quads_per_axis=quads, core=spec["core"],
+                    h_min=spec["h-min"])
+    print(f"  graded mesh {quads[0]}x{quads[1]} quads, core "
+          f"{spec['core']} at h-min {spec['h-min']}", flush=True)
+    return res
+
+
+def ibm_gmsh_card_vs_cpu(torch, tmp, out, held):
+    """15c: the 12x12 Gmsh box, static and moving, 2 steps on the card
+    and on the CPU (vorticity within GMSH_CPU_LIMIT, the KLE and flux CG
+    lists equal); then 15a's and 15b's first post-steps again on the
+    card: bitwise equal, with equal iterations."""
+    from pynama_tpu_torch.cases.immersed import (
+        ImmersedBoundaryDynamicProblem, ImmersedBoundaryProblem)
+
+    res = {}
+    for kind, cls in (("static", ImmersedBoundaryProblem),
+                      ("dynamic", ImmersedBoundaryDynamicProblem)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = cls(ibm_small_gmsh(tmp, kind), device=dev).setup()
+            vort, t, n = p.run(max_steps=2)
+            runs[dev] = (vort.cpu(), t, n, p.cg_iters, p.coupling.cg_iters)
+        (vc, tc, nc, ic, fc), (vh, th, nh, ih, fh) = runs["cuda"], runs["cpu"]
+        rel = rel_diff(torch, vc, vh)
+        res[kind] = {"steps": [nc, nh], "t": [tc, th], "vort_rel_diff": rel,
+                     "cg_iters_card": ic, "cg_iters_cpu": ih,
+                     "flux_cg_iters_card": fc, "flux_cg_iters_cpu": fh}
+        print(f"  12x12 {kind}: steps {nc}/{nh}, vorticity card vs CPU "
+              f"{rel:.3e} (limit {GMSH_CPU_LIMIT:g}); KLE CG lists equal "
+              f"{ic == ih}, flux CG card {fc} CPU {fh}", flush=True)
+        if nc != 2 or nh != 2 or not rel <= GMSH_CPU_LIMIT or ic != ih \
+                or fc != fh:
+            fail(f"15c {kind}: card vs CPU {rel:.3e}, steps {nc}/{nh}, "
+                 f"CG {ic} / {ih}, flux CG {fc} / {fh}")
+    for key in ("ibm_gmsh_re40", "ibm_gmsh_dynamic"):
+        p, first = held.pop(key)
+        k, kf = len(p.cg_iters), len(p.coupling.cg_iters)
+        again = p._post_step(*first["args"])
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b))
+                   for a, b in zip(again, first["out"]))
+        iters, flux = p.cg_iters[k:], p.coupling.cg_iters[kf:]
+        res[key + "_repeat"] = {
+            "bitwise_equal": same, "cg_iters": iters,
+            "first_cg_iters": first["iters"], "flux_cg_iters": flux,
+            "first_flux_cg_iters": first["flux"]}
+        print(f"  {key}'s first post-step again: bitwise equal {same}, KLE "
+              f"CG {iters} (first {first['iters']}), flux CG {flux} (first "
+              f"{first['flux']})", flush=True)
+        if not same or iters != first["iters"] or flux != first["flux"]:
+            fail(f"15c: {key}'s first post-step is not repeated bit for bit")
+    out["ibm_gmsh_card_vs_cpu"] = res
+
+
+def ibm_gmsh_box_leg(torch, stencil, tmp, out):
+    """15d: ibm-static.yaml's 48x48 box as a uniform Gmsh file, 3 steps;
+    UnstructuredIBMCoupling's windows against IBMCoupling's on 12a's box
+    mesh as sparse maps (node -> weight, box ids mapped to the Gmsh
+    mesh's by coordinates) within IBM_GMSH_WINDOW_LIMIT; the slip and
+    the cd history against 12a's record (no second box run)."""
+    import numpy as np
+
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+    from pynama_tpu_torch.ibm.coupling import (IBMCoupling,
+                                               UnstructuredIBMCoupling)
+    from pynama_tpu_torch.mesh.structured import BoxMesh
+
+    p = ImmersedBoundaryProblem(ibm_box_gmsh(tmp))
+    ibm_gmsh_run(torch, stencil, p, "ibm_gmsh_box", out,
+                 UnstructuredIBMCoupling)
+    box_cfg = IBM_CONFIGS["ibm-static"]["domain"]
+    b = box_cfg["box-mesh"]
+    box = BoxMesh(nelem=tuple(b["nelem"]), lower=tuple(b["lower"]),
+                  upper=tuple(b["upper"]), ngl=box_cfg["ngl"])
+    X, _ = p._body_state(0.0)
+    cb = IBMCoupling(box, p.body.dl)
+    nb, wb = (a.cpu().numpy() for a in cb.windows(X))
+    nu, wu = (a.cpu().numpy() for a in p.coupling.windows(None))
+    # box node -> Gmsh node, both keyed by their lattice position
+    h = cb.h
+    bc = np.asarray(box.coords)
+    uc = np.asarray(p.mesh.coords)[:, :2]
+    key_b = np.rint((bc - bc.min(axis=0)) / h).astype(np.int64)
+    key_u = np.rint((uc - uc.min(axis=0)) / h).astype(np.int64)
+    npx = int(key_b[:, 0].max()) + 1
+    g_of_b = np.empty(len(bc), dtype=np.int64)
+    g_of_b[np.argsort(key_b[:, 1] * npx + key_b[:, 0])] = np.argsort(
+        key_u[:, 1] * npx + key_u[:, 0])
+    L = len(wb)
+    dense_b = np.zeros((L, len(uc)))
+    dense_u = np.zeros((L, len(uc)))
+    np.add.at(dense_b, (np.repeat(np.arange(L), nb.shape[1]),
+                        g_of_b[nb.reshape(-1)]), wb.reshape(-1))
+    np.add.at(dense_u, (np.repeat(np.arange(L), nu.shape[1]),
+                        nu.reshape(-1)), wu.reshape(-1))
+    win = float(np.abs(dense_b - dense_u).max())
+    box_rec, rec = out["ibm_static"], out["ibm_gmsh_box"]
+    cds = [c[0] for c in rec["cd_history"]]
+    box_cds = [c[0] for c in box_rec["cd_history"]]
+    cd_rel = max(abs(a - b) / abs(b) for a, b in zip(cds, box_cds))
+    rec.update(windows_vs_box_max_abs=win, cd_rel_diff_vs_12a=cd_rel,
+               cd_history_12a=box_rec["cd_history"], slip_12a=box_rec["slip"],
+               t_history_12a=box_rec["t_history"],
+               ms_per_step_12a=box_rec["ms_per_step"])
+    print(f"  windows vs the box coupling's on 12a's mesh: max |w_gmsh - "
+          f"w_box| {win:.3e} (limit {IBM_GMSH_WINDOW_LIMIT:g}); cd {cds} vs "
+          f"12a {box_cds}: rel diff {cd_rel:.3e} (limit "
+          f"{IBM_GMSH_BOX_CD_LIMIT:g}, the CPU pair {IBM_GMSH_BOX_CD_CPU:g}); "
+          f"slip {rec['slip_per_step'][-1]:.3e} vs 12a {box_rec['slip']:.3e}"
+          f"; t {p.t_history} vs 12a {box_rec['t_history']}", flush=True)
+    if not win <= IBM_GMSH_WINDOW_LIMIT:
+        fail(f"15d: windows differ from the box coupling's by {win:.3e}")
+    if len(cds) != len(box_cds) or not cd_rel <= IBM_GMSH_BOX_CD_LIMIT:
+        fail(f"15d: cd history vs 12a {cd_rel:.3e}")
+
+
+def phase_ibm_gmsh_legs(torch, stencil, phase, out):
+    """Phase 15 (see the module's docstring)."""
+    from pynama_tpu_torch.cases.immersed import (
+        ImmersedBoundaryDynamicProblem, ImmersedBoundaryProblem)
+    from pynama_tpu_torch.ibm.coupling import (LatticeIBMCoupling,
+                                               UnstructuredIBMCoupling)
+
+    held = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        held["ibm_gmsh_re40"] = phase(
+            "ibm_gmsh_re40", "[15a] static cylinder, the Re-40 geometry on "
+            "a graded Gmsh mesh, float64, 3 steps",
+            lambda: ibm_gmsh_leg(torch, stencil, tmp, out, "ibm_gmsh_re40",
+                                 ibm_re40_config(), IBM_GMSH_RE40,
+                                 ImmersedBoundaryProblem,
+                                 UnstructuredIBMCoupling))
+        held["ibm_gmsh_dynamic"] = phase(
+            "ibm_gmsh_dynamic", "[15b] moving cylinder, ibm-dynamic.yaml's "
+            "geometry on a graded Gmsh mesh, float64, 3 steps",
+            lambda: ibm_gmsh_leg(torch, stencil, tmp, out,
+                                 "ibm_gmsh_dynamic",
+                                 IBM_CONFIGS["ibm-dynamic"], IBM_GMSH_DYN,
+                                 ImmersedBoundaryDynamicProblem,
+                                 LatticeIBMCoupling))
+        phase("ibm_gmsh_card_vs_cpu", "[15c] 12x12 Gmsh IBM runs on the "
+              "card vs the CPU; 15a's and 15b's first post-steps repeated",
+              lambda: ibm_gmsh_card_vs_cpu(torch, tmp, out, held))
+        phase("ibm_gmsh_box", "[15d] ibm-static.yaml's 48x48 box as a Gmsh "
+              "file, 3 steps, against 12a",
+              lambda: ibm_gmsh_box_leg(torch, stencil, tmp, out))
+
+
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     """One entry of the "kernels" line; ``head`` holds the kernel's,
     the plain version's and the library call's times and the bound at the
@@ -2418,6 +2865,7 @@ def main():
     cli2, rows13 = phase_cli_legs(torch, stencil, phase, held.pop("cavity"),
                                   checked, out)
     phase_gmsh_legs(torch, stencil, phase, out)
+    phase_ibm_gmsh_legs(torch, stencil, phase, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),
@@ -2433,6 +2881,7 @@ def main():
                         + sum(ibm2.values()) + sum(cli2.values()),
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
+                        also_replaces=["pynama_tpu/ops/pallas_stencil.py:273"],
                         parity_leg_launches=sl10["launches_by_instance"],
                         parity_leg_max_abs_err=max(
                             r["max_abs_err"]
@@ -2448,6 +2897,7 @@ def main():
                         + sl11c["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",
                         out["stencil3d_v1_launches"],
+                        also_replaces=["pynama_tpu/ops/pallas_stencil.py:310"],
                         ws_leg_launches={"11c": sl11c["stencil_launches"]}),
         breakdown,
     ]}

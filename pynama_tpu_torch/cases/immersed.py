@@ -1,26 +1,30 @@
 """Immersed-boundary flow cases: static and moving bodies in a free stream.
 
-Port of pynama_tpu/cases/immersed.py on uniform 2D box meshes. The far
-field is a uniform flow from Re or an explicit velocity; the
-regularized-delta coupling (ibm/coupling.py) enforces the body velocity
-after every accepted step; drag and lift coefficients integrate the
-virtual flux.
+Port of pynama_tpu/cases/immersed.py on uniform 2D box meshes and on
+Gmsh domains that are uniform around the body. The far field is a
+uniform flow from Re or an explicit velocity; the regularized-delta
+coupling (ibm/coupling.py) enforces the body velocity after every
+accepted step; drag and lift coefficients integrate the virtual flux.
 
 The state (vorticity, KLE velocity and warm starts) stays in the blocked
 layout between steps, as BaseProblem.run keeps it; only the coupling
 reads and writes the flat interleaved grid layout, converted at the
-post-step. Gmsh domains are not ported yet: they raise (ROADMAP.md
-queue 1 #9b).
+post-step. On a Gmsh domain the state is flat throughout (the layout
+converters are identities), the IBM spacing is the domain's 'h-min' /
+(ngl - 1), and the coupling is UnstructuredIBMCoupling for static
+bodies or LatticeIBMCoupling for moving ones.
 """
 
+import time
 from math import cos, radians, sin
 
-import torch
+import numpy as np
 
 from pynama_tpu_torch.cases.base import _eval_scalar
 from pynama_tpu_torch.cases.uniform import UniformFlowProblem
 from pynama_tpu_torch.ibm.bodies import BodiesContainer
-from pynama_tpu_torch.ibm.coupling import IBMCoupling
+from pynama_tpu_torch.ibm.coupling import (IBMCoupling, LatticeIBMCoupling,
+                                           UnstructuredIBMCoupling)
 from pynama_tpu_torch.solvers.rk import make_bs5_stepper
 
 
@@ -28,16 +32,8 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
     """Static bodies in UniformFlowProblem's uniform far field, whose
     velocity read_boundary_condition sets. The CG iterations of every
     post-step's flux solve are ``coupling.cg_iters``, beside the KLE
-    solves' ``cg_iters``."""
-
-    def __init__(self, config, dtype=torch.float64, device=None,
-                 **overrides):
-        if overrides.get("gmsh_file") or \
-                config.get("domain", {}).get("gmsh-file"):
-            raise NotImplementedError(
-                "IBM on a Gmsh domain (the unstructured and lattice "
-                "couplings) is not ported yet (ROADMAP.md queue 1 #9b)")
-        super().__init__(config, dtype=dtype, device=device, **overrides)
+    solves' ``cg_iters``. ``coupling_s`` is the seconds of the
+    coupling's host build (windows or lattice), beside ``setup_s``."""
 
     def read_boundary_condition(self, bc):
         """Free-stream velocity from Re, direction and longRef, or from
@@ -58,17 +54,27 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
             self.re = self.u_ref / self.nu
 
     def setup(self):
+        if self.gmsh_file:
+            hmin = self.config["domain"].get("h-min")
+            if hmin is None:
+                raise ValueError("IBM on a gmsh-file domain needs 'h-min'")
         super().setup()
-        # the fine-grid spacing h: the smallest over the axes
-        spacing = min((self.upper[i] - self.lower[i]) / self.nelem[i]
-                      for i in range(self.dim))
-        self.h = spacing / (self.ngl - 1)
+        # the fine-grid spacing h: on a Gmsh domain 'h-min' / (ngl - 1),
+        # else the smallest over the box's axes
+        if self.gmsh_file:
+            self.h = _eval_scalar(hmin) / (self.ngl - 1)
+        else:
+            spacing = min((self.upper[i] - self.lower[i]) / self.nelem[i]
+                          for i in range(self.dim))
+            self.h = spacing / (self.ngl - 1)
         bodies_cfg = self.config.get("bodies")
         if not bodies_cfg:
             raise ValueError("IBM case needs a 'bodies' config section")
         self.body = BodiesContainer(bodies_cfg).create(self.h)
         self.body.set_vel_ref(self.u_ref)
-        self.coupling = IBMCoupling(self.mesh, self.body.dl)
+        t0 = time.perf_counter()
+        self.coupling = self._make_coupling()
+        self.coupling_s = time.perf_counter() - t0
         self.cd_history = []
         self.cl_history = []
         self.t_history = []
@@ -79,9 +85,33 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
         self.dt_history = []
         return self
 
+    def _make_coupling(self):
+        """The box coupling, or on a Gmsh domain the host-built static
+        windows (a static body) or lattice (a moving body; its envelope
+        is the box of the body's points at 257 times over the run and
+        257 over the first period of its oscillation, Te = 5 / u_ref,
+        which can be much shorter than the run)."""
+        if not self.gmsh_file:
+            return IBMCoupling(self.mesh, self.body.dl)
+        if not self.body.is_moving:
+            c = UnstructuredIBMCoupling(self.mesh, self.body.dl,
+                                        h_min=self.h, dtype=self.dtype,
+                                        device=self.device)
+            c.windows_host(self.body.coords_at(0.0))
+            return c
+        ts = np.linspace(self.t_start, self.t_end, 257)
+        Te = 5.0 / max(abs(self.u_ref), 1e-30)
+        ts = np.concatenate([ts, self.t_start
+                             + Te * np.linspace(0.0, 1.0, 257)])
+        pts = np.concatenate([self.body.coords_at(float(tt)) for tt in ts])
+        return LatticeIBMCoupling(self.mesh, self.body.dl, h_min=self.h,
+                                  envelope=(pts.min(axis=0),
+                                            pts.max(axis=0)),
+                                  device=self.device)
+
     def vort_bc(self, t, vort):
-        """Far-field vorticity clamped to zero (grid or blocked
-        layout)."""
+        """Far-field vorticity clamped to zero (grid, blocked or, on a
+        Gmsh domain, flat layout)."""
         m = self.bc_vort_mask
         if vort.dim() > 1 and vort.shape != m.shape:  # blocked layout
             m = self.bc_vort_mask_b
@@ -95,8 +125,9 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
                 self._tensor(self.body.velocity_at(float(t))))
 
     def _post_step(self, t, vort, vel_ws, Xb, Ub):
-        """(t, vort, vel_ws, Xb, Ub) -> (vort', vel', q), blocked in and
-        out: KLE solve -> velocity correction -> vort = Curl(vel)."""
+        """(t, vort, vel_ws, Xb, Ub) -> (vort', vel', q), in the solver
+        layout (blocked, or flat on a Gmsh domain) in and out: KLE solve
+        -> velocity correction -> vort = Curl(vel)."""
         vel = self.solve_kle(t, vort, x0=vel_ws)
         nodes, weights = self.coupling.windows(Xb)
         vel_f, q = self.coupling.solve_correction(

@@ -22,8 +22,13 @@ plain jnp outside any Pallas kernel in the reference. The scatter-add is
 sums each node's contributions in their order, so it is deterministic,
 where ``index_add_``'s atomics may sum in any order.
 
-The unstructured-mesh couplings (``UnstructuredIBMCoupling``,
-``LatticeIBMCoupling``) are not ported yet: they raise.
+On a Gmsh domain the fine grid is a locally uniform region of an
+unstructured mesh at the spacing h = 'h-min' / (ngl - 1): for a static
+body ``UnstructuredIBMCoupling`` finds each Lagrange point's window once
+on the host; for a moving body ``LatticeIBMCoupling`` snaps the region
+the body moves through onto a lattice once on the host, after which the
+box-mesh window math runs on the device every step through a lattice ->
+node table. Both inherit the operator applies.
 """
 
 from dataclasses import dataclass
@@ -32,14 +37,12 @@ from typing import List
 import numpy as np
 import torch
 
+from pynama_tpu_torch.device import resolve_device
 from pynama_tpu_torch.ibm.diracs import KERNELS
 from pynama_tpu_torch.mesh.structured import BoxMesh
 from pynama_tpu_torch.solvers.cg import cg_solve
 
 WIN = 6  # window size per axis
-
-_UNSTRUCTURED = ("IBM on unstructured (gmsh) meshes is not ported yet "
-                 "(ROADMAP.md queue 1 #9b, IBM on Gmsh domains)")
 
 
 @dataclass
@@ -57,7 +60,11 @@ class IBMCoupling:
     def __post_init__(self):
         m = self.mesh
         if not isinstance(m, BoxMesh):
-            raise NotImplementedError(_UNSTRUCTURED)
+            raise NotImplementedError(
+                "IBM coupling needs a structured box mesh for the "
+                "on-device window computation; on unstructured gmsh "
+                "domains use UnstructuredIBMCoupling (static) / "
+                "LatticeIBMCoupling (moving)")
         if m.dim != 2:
             raise NotImplementedError("IBM coupling is 2D (like the "
                                       "reference)")
@@ -151,17 +158,176 @@ class IBMCoupling:
         return vel, q
 
 
+@dataclass
 class UnstructuredIBMCoupling(IBMCoupling):
-    """Static bodies on a locally uniform unstructured region: not
-    ported yet."""
+    """Static bodies on a locally uniform region of an unstructured
+    (gmsh) mesh, at the kernel-support spacing ``h_min`` ('h-min' /
+    (ngl - 1)).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_UNSTRUCTURED)
+    The discrete-delta identities (sum phi = 1, linear reproduction)
+    hold only where the mesh is uniform at spacing h inside each Lagrange
+    point's 4h x 4h support: windows_host checks that every window's
+    weights sum to 1 within 1%. The windows are found once on the host
+    (the node set has no grid to index on the device), so the body must
+    not move; they are kept on ``device`` in ``dtype``.
+    """
+
+    h_min: float = None
+    dtype: torch.dtype = torch.float64
+    device: object = None
+
+    def __post_init__(self):
+        if self.mesh.dim != 2:
+            raise NotImplementedError("IBM coupling is 2D (like the "
+                                      "reference)")
+        if self.h_min is None:
+            raise ValueError("UnstructuredIBMCoupling needs h_min")
+        self.h = float(self.h_min)
+        self.phi = KERNELS[self.kernel]
+        self.device = resolve_device(self.device)
+        self.cg_iters: List[int] = []
+        self._cache = None
+
+    def windows_host(self, X):
+        """The windows of the static Lagrange points X (L, 2), found on
+        the host and cached.
+
+        Every node inside the kernel's open 4h x 4h box around a point,
+        in ascending id order, contributes phi(dx/h) phi(dy/h); weights
+        of magnitude <= 1e-14 are dropped, and rows are padded to the
+        longest with node 0 at weight 0. Returns (nodes (L, cap) int64,
+        weights (L, cap)) on the coupling's device.
+        """
+        X = np.asarray(X, dtype=np.float64)
+        coords = np.asarray(self.mesh.coords, dtype=np.float64)[:, :2]
+        h = self.h
+        sels, ds = [], []
+        for x in X:
+            d = (coords - x[None, :]) / h
+            sel = np.flatnonzero((np.abs(d[:, 0]) < 2.0)
+                                 & (np.abs(d[:, 1]) < 2.0))
+            sels.append(sel)
+            ds.append(d[sel])
+        # one kernel evaluation of every (point, node) pair, split by row
+        d = torch.as_tensor(np.concatenate(ds), dtype=torch.float64)
+        w_all = (self.phi(d[:, 0]) * self.phi(d[:, 1])).numpy()
+        nodes_l, weights_l = [], []
+        for sel, w in zip(sels, np.split(w_all, np.cumsum(
+                [len(s) for s in sels])[:-1])):
+            keep = np.abs(w) > 1e-14
+            nodes_l.append(sel[keep])
+            weights_l.append(w[keep])
+        rowsums = np.array([w.sum() for w in weights_l])
+        bad = np.abs(rowsums - 1.0) > 1e-2
+        if bad.any():
+            raise ValueError(
+                f"mesh is not locally uniform at spacing h={h:g} around "
+                f"{int(bad.sum())}/{len(X)} Lagrange points (window "
+                f"weight sums {rowsums[bad][:4]} != 1): refine the gmsh "
+                f"region around the body uniformly or fix 'h-min'")
+        cap = max(len(n) for n in nodes_l)
+        nodes = np.zeros((len(nodes_l), cap), dtype=np.int64)
+        weights = np.zeros((len(nodes_l), cap))
+        for i, (n, w) in enumerate(zip(nodes_l, weights_l)):
+            nodes[i, :len(n)] = n
+            weights[i, :len(w)] = w
+        self._cache = (
+            torch.as_tensor(nodes, device=self.device),
+            torch.as_tensor(weights, dtype=self.dtype, device=self.device))
+        return self._cache
+
+    def windows(self, X):
+        """The cached windows (X is ignored: the body is static);
+        windows_host must have run at setup."""
+        if self._cache is None:
+            raise RuntimeError(
+                "UnstructuredIBMCoupling.windows_host(X) must run at "
+                "setup (static bodies only on gmsh domains)")
+        return self._cache
 
 
+@dataclass
 class LatticeIBMCoupling(IBMCoupling):
-    """Moving bodies on a locally uniform unstructured region: not
-    ported yet."""
+    """Moving bodies on a locally uniform region of an unstructured
+    (gmsh) mesh.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_UNSTRUCTURED)
+    The uniform region the body moves through is snapped once, on the
+    host, onto a virtual lattice of spacing h = ``h_min``; a dense
+    lattice -> node id table (-1 where no node sits) on ``device`` then
+    lets the box-mesh window math run on the device for any body
+    position inside ``envelope``, the (lo, hi) box of every Lagrange
+    point over the run. A moving body changes only values: the shapes
+    stay fixed and nothing is read back to the host. Construction checks
+    that every lattice site within the kernel's reach (2h) of the
+    envelope holds a mesh node, so no window reads a missing site at a
+    nonzero weight.
+    """
+
+    h_min: float = None
+    envelope: tuple = None  # (lo (2,), hi (2,)) box the body stays inside
+    device: object = None
+
+    def __post_init__(self):
+        if self.mesh.dim != 2:
+            raise NotImplementedError("IBM coupling is 2D (like the "
+                                      "reference)")
+        if self.h_min is None or self.envelope is None:
+            raise ValueError("LatticeIBMCoupling needs h_min and envelope")
+        h = self.h = float(self.h_min)
+        self.phi = KERNELS[self.kernel]
+        self.device = resolve_device(self.device)
+        self.cg_iters: List[int] = []
+        lo = np.asarray(self.envelope[0], dtype=np.float64)
+        hi = np.asarray(self.envelope[1], dtype=np.float64)
+        # the lattice covers the kernel support (2h) around the envelope
+        # and the window's slack ring (one more cell for floor() jitter)
+        pad = (WIN // 2 + 1) * h
+        coords = np.asarray(self.mesh.coords, dtype=np.float64)[:, :2]
+        sel = np.flatnonzero(
+            (coords[:, 0] >= lo[0] - pad) & (coords[:, 0] <= hi[0] + pad)
+            & (coords[:, 1] >= lo[1] - pad) & (coords[:, 1] <= hi[1] + pad))
+        if sel.size == 0:
+            raise ValueError("no mesh nodes inside the IBM envelope")
+        sub = coords[sel]
+        origin = sub.min(axis=0)
+        idx = np.rint((sub - origin[None, :]) / h).astype(np.int64)
+        on_lattice = (np.abs(sub - (origin[None, :] + idx * h))
+                      < 0.05 * h).all(axis=1)
+        idx, lat_nodes = idx[on_lattice], sel[on_lattice]
+        nx = int(idx[:, 0].max()) + 1
+        ny = int(idx[:, 1].max()) + 1
+        table = np.full((ny, nx), -1, dtype=np.int64)
+        flat = idx[:, 1] * nx + idx[:, 0]
+        if len(np.unique(flat)) != len(flat):
+            raise ValueError(
+                "two mesh nodes snapped to the same lattice site: the "
+                "region around the body is not uniform at spacing "
+                f"h={h:g} — fix 'h-min' or refine the gmsh region")
+        table.reshape(-1)[flat] = lat_nodes
+        # every site within 2h of the envelope (where kernel weights can
+        # be nonzero) must hold a mesh node
+        i_lo = np.floor((lo - 2 * h - origin) / h + 0.5).astype(int)
+        i_hi = np.ceil((hi + 2 * h - origin) / h - 0.5).astype(int)
+        out_of_table = int(np.maximum(-i_lo, 0).sum()
+                           + np.maximum(i_hi - [nx - 1, ny - 1], 0).sum())
+        i_lo = np.maximum(i_lo, 0)
+        i_hi = np.minimum(i_hi, [nx - 1, ny - 1])
+        core = table[i_lo[1]:i_hi[1] + 1, i_lo[0]:i_hi[0] + 1]
+        n_missing = int((core < 0).sum()) + out_of_table
+        if n_missing:
+            raise ValueError(
+                f"{n_missing} lattice sites within kernel "
+                f"reach of the body envelope have no mesh node at "
+                f"spacing h={h:g}: refine the gmsh region uniformly "
+                "over the whole motion envelope (+2h) or fix 'h-min'")
+        self.lower = origin
+        self.npx, self.npy = nx, ny
+        self._table = torch.as_tensor(table.reshape(-1), device=self.device)
+
+    def windows(self, X):
+        """The box windows on the lattice, mapped to global node ids on
+        the device: a site without a node gets weight 0 and id 0."""
+        lat_nodes, weights = IBMCoupling.windows(self, X)
+        g = self._table[lat_nodes]
+        weights = torch.where(g >= 0, weights, torch.zeros_like(weights))
+        return torch.clamp(g, min=0), weights

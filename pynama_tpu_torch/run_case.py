@@ -21,9 +21,14 @@ the driver exits with an error. Charts need matplotlib: without it they
 are skipped with a warning, and everything else is still written. Case
 configs are YAML files of the reference's schema, looked up in
 ./configs/ or by path. ``-gmsh FILE`` (or a config's domain
-``gmsh-file``) runs the production run on an unstructured Gmsh mesh;
-the -test modes on a Gmsh mesh and ``-sharded`` (distributed runs) are
-not ported yet and raise NotImplementedError.
+``gmsh-file``) runs the production run on an unstructured Gmsh mesh,
+the IBM cases too (their config's domain then needs ``h-min``, the
+spacing of the uniform region around the body: ``-opt
+domain.h-min=...``). The -test modes build their problem from the
+config's domain and ignore ``-gmsh``; on a Gmsh config ``kle`` and
+``chartkle`` run, and ``chart`` (which refines a box mesh) raises
+ValueError. ``-sharded`` (distributed runs) is not ported yet and raises
+NotImplementedError.
 """
 
 import argparse
@@ -242,7 +247,11 @@ def kle_field_dump(args, config):
 def chart_kle(args, config):
     """p- and h-refinement KLE convergence charts: the p-refinement error
     per viscous time beside a Q2 h-refinement curve, both against the
-    per-axis node count N*."""
+    per-axis node count N*. A Gmsh mesh has no per-axis node count and
+    no nelem to refine: it raises ValueError."""
+    if config.get("domain", {}).get("gmsh-file"):
+        raise ValueError("-test chart refines a box mesh (ngl and nelem); "
+                         "a Gmsh mesh has no per-axis node count N*")
     ngls = list(range(3, int(args.max_ngl) + 1, 2))
     taus = [0.2, 0.5, 0.9]
     rows = []
@@ -403,9 +412,6 @@ def main(argv=None):
             f"({', '.join(sorted(analytic))}); got '{args.case}'"
         )
 
-    if args.test and (args.gmsh or config.get("domain", {}).get("gmsh-file")):
-        raise NotImplementedError("-test modes on a Gmsh mesh are not "
-                                  "ported yet (ROADMAP.md queue 1 #9b)")
     if args.test == "kle":
         return kle_field_dump(args, config)
     if args.test == "chart":

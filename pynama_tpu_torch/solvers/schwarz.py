@@ -211,7 +211,10 @@ def _coarse_level(mesh, K, dim, dtype, device):
         shape=(n_nodes * dim, nv * dim)).tocsr()
     Ac = (R.T @ K @ R).toarray()
     Ac_inv = torch.as_tensor(np.linalg.inv(Ac), dtype=dtype, device=device)
-    table = torch.as_tensor(contributor_table(cols, nv), device=device)
+    # the unused slots (weight 0, on corner 0) stay out of the table:
+    # kept, they would make corner 0's row as long as the mesh
+    table = torch.as_tensor(contributor_table(np.where(wts != 0, cols, -1),
+                                              nv), device=device)
     colsd = torch.as_tensor(cols, device=device)
     wtsd = torch.as_tensor(wts, dtype=dtype, device=device)
 

@@ -149,20 +149,23 @@ def test_run_case_gmsh_on_cpu(tmp_path, monkeypatch):
 
 
 def test_gmsh_paths_that_raise(tmp_path):
-    """IBM on a Gmsh domain and -test modes on a Gmsh mesh raise, naming
-    the queue item; -sharded still raises."""
+    """IBM on a Gmsh domain without 'h-min' raises the reference's
+    ValueError (IBM on Gmsh domains is ported:
+    tests/test_torch_ibm_gmsh_*.py); a -test mode ignores -gmsh, as the
+    reference's does; -sharded still raises, naming the queue item."""
     path = quad_msh(tmp_path / "c.msh", 3)
     with open(ROOT / "configs" / "ibm-static.yaml") as f:
         ibm = yaml.safe_load(f)
     ibm["domain"] = {"ngl": 3, "gmsh-file": path}
-    with pytest.raises(NotImplementedError, match="queue 1 #9b"):
-        ImmersedBoundaryProblem(ibm, device="cpu")
+    with pytest.raises(ValueError, match="h-min"):
+        ImmersedBoundaryProblem(ibm, device="cpu").setup()
     base = ["-device", "cpu", "-log", "WARNING",
             "-opt", f"save-dir={tmp_path}"]
-    for argv, item in ((["-case", "ibm-static", "-gmsh", path], "#9b"),
-                       (["-case", "taylor-green", "-test", "kle", "-gmsh",
-                         path], "#9b"),
-                       (["-case", "uniform", "-gmsh", path, "-sharded",
-                         "2"], "#10")):
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-            run_case.main(argv + base)
+    with pytest.raises(ValueError, match="h-min"):
+        run_case.main(["-case", "ibm-static", "-gmsh", path] + base)
+    res = run_case.main(["-case", "taylor-green", "-test", "kle", "-gmsh",
+                         path] + base)
+    assert len(res["errors"]) == 11
+    with pytest.raises(NotImplementedError, match="queue 1 #10"):
+        run_case.main(["-case", "uniform", "-gmsh", path, "-sharded", "2"]
+                      + base)

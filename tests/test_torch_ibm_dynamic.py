@@ -1,9 +1,9 @@
 """The port's immersed-boundary cases on the CPU, moving body: the twin
 of tests/test_ibm.py::test_dynamic_body_moves at its config, a 2-step
 float64 run against the reference's at the limits of
-tests/test_torch_ibm_cases.py, the two boundary-condition forms, what is
-not ported (checkpoint arguments, the unstructured couplings) and
-chip_smoke.py's copies of the shipped IBM configs."""
+tests/test_torch_ibm_cases.py, the two boundary-condition forms, the
+checkpoint arguments, the couplings' refusals and chip_smoke.py's copies
+of the shipped IBM configs."""
 
 from pathlib import Path
 
@@ -105,10 +105,19 @@ def test_checkpoint_arguments_raise(kw, tmp_path, monkeypatch):
 
 
 def test_non_box_couplings_raise():
-    for cls in (coupling.UnstructuredIBMCoupling,
-                coupling.LatticeIBMCoupling):
-        with pytest.raises(NotImplementedError, match="unstructured"):
-            cls(None, 0.1)
+    """The box coupling refuses a mesh that is not a box, naming the
+    unstructured couplings; those (ported: tests/test_torch_ibm_gmsh_*.py)
+    refuse to start without h_min, the lattice one without an envelope,
+    as the reference's do."""
+    from pynama_tpu_torch.mesh.unstructured import UnstructuredQuadMesh
+    from tests.test_unstructured import box_corner_mesh
+
+    mesh = UnstructuredQuadMesh(*box_corner_mesh(2, 2), ngl=3)
+    with pytest.raises(ValueError, match="needs h_min"):
+        coupling.UnstructuredIBMCoupling(mesh, 0.1, device="cpu")
+    for kw in ({}, {"h_min": 0.25}):
+        with pytest.raises(ValueError, match="needs h_min and envelope"):
+            coupling.LatticeIBMCoupling(mesh, 0.1, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="unstructured"):
         coupling.IBMCoupling(object(), 0.1)
 

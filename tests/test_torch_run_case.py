@@ -1,7 +1,7 @@
 """The port's command line (run_case.py) on the CPU: the CLI twins of
 tests/test_io_cli.py (the subprocess ones run the port's CLI with
 -device cpu, and write under tmp_path), the CLI's refusals (no card
-without -device cpu, -sharded, -gmsh for IBM cases), and the
+without -device cpu, -sharded), and the
 reference's and the port's production run (time_solving) of
 ``-case taylor-green -nelem 3 3 -max-steps 2`` in float64, each in its
 own directory: the metrics, the checkpoint, the XDMF index and the HDF5
@@ -106,13 +106,11 @@ def test_cli_without_a_card_exits_naming_cuda(monkeypatch):
     assert e.value.code != 0 and "CUDA" in str(e.value.code)
 
 
-@pytest.mark.parametrize("argv", [["-sharded", "2"],
-                                  ["-case", "ibm-static", "-gmsh", "x.msh"]],
-                         ids=["sharded", "gmsh"])
+@pytest.mark.parametrize("argv", [["-sharded", "2"]], ids=["sharded"])
 def test_unported_flags_raise(argv, tmp_path):
-    """-sharded raises; -gmsh is ported but for IBM cases (ROADMAP.md
-    queue 1 #9b), which raise before the file is read."""
-    with pytest.raises(NotImplementedError, match="queue 1 #(9|10)"):
+    """-sharded raises (-gmsh, for the IBM cases too, is ported:
+    tests/test_torch_ibm_gmsh_cli.py)."""
+    with pytest.raises(NotImplementedError, match="queue 1 #10"):
         run_case.main(["-case", "uniform", "-device", "cpu", "-log",
                        "WARNING", "-opt", f"save-dir={tmp_path}", *argv])
 
