@@ -52,12 +52,13 @@ Phases, each timed; any failure exits non-zero:
 10. the parity leg (float64 state refined by kle.solve_ir to a true
    relative residual of 1e-8, float32 multigrid-CG inner solves;
    bench.py's parity settings):
-   10a CavityProblem(cfg).setup().run(max_steps=3) at 384x384 in
+   10a CavityProblem(cfg).setup().run(max_steps=2) at 384x384 in
        float64 under kle-refine, counts reset just before and read just
        after; stencil2d's float64 launches and its float32 ones must
-       each be > 0;
+       each be > 0; cut from 3 steps to PARITY_STEPS (2) to make room
+       for phase 16 (a parity step takes 17.5-20.5 s);
    10b the true float64 relative residual of solve_ir on the final mask
-       at the initial vorticity and after step 3, formed anew
+       at the initial vorticity and after 10a's last step, formed anew
        (<= 1e-8);
    10c a 16x16 refined cavity through the kernel and with the plain
        version forced (vorticities within 1e-6);
@@ -65,7 +66,8 @@ Phases, each timed; any failure exits non-zero:
        (stencil3d's float64 and float32 instances): true residual
        <= 1e-8, velocity within 0.15 of the exact field;
    10e stencil2d against its plain version at every shape 10a logged,
-       timed as device time, and 10a's launches and time by instance;
+       timed as device time beside cuDNN's, and 10a's launches and
+       time by instance;
 11. the ws legs: bench.py's float32 cavity and channel3d legs run with
    kle-ws-extrapolate on (each RK stage warm-starts its KLE solves from
    its own slot's last two accepted solutions); phases 3 and 4 stay
@@ -108,9 +110,9 @@ Phases, each timed; any failure exits non-zero:
        the same steps, t within 1e-9 (the adaptive dt follows wlte, as
        wlte^(-1/5)), the last cd within 1e-6;
    12e stencil2d against its plain version at every shape 12a-12c
-       logged (float64, 1e-12), timed as device time, and four
-       bitwise-equal launches at the non-square fine shape and at the
-       most-split float64 shape;
+       logged (float64, 1e-12), timed as device time beside cuDNN's,
+       and four bitwise-equal launches at the non-square fine shape and
+       at the most-split float64 shape;
 13. the command line: pynama_tpu_torch.run_case.main(argv) called in
    this process (the CUDA device, the default), the working directory
    and every save-dir a temporary directory, the launch counts reset
@@ -148,7 +150,8 @@ Phases, each timed; any failure exits non-zero:
        error within KLE_ERR_RTOL of the reference's and falling, as in
        its JSON; and -test chartkle -opt time-solver.max-steps=3;
    13g stencil2d against its plain version at every shape 13a-13f
-       logged that no earlier phase checked, timed as device time;
+       logged that no earlier phase checked, timed as device time
+       beside cuDNN's;
 14. unstructured Gmsh meshes (float64; ElementOps and additive Schwarz,
    plain torch: the path launches no stencil kernel, and every count,
    set to 0 just before each run and read just after, must stay 0); the
@@ -207,7 +210,29 @@ Phases, each timed; any failure exits non-zero:
        file ('h-min' 6/48), 3 steps: UnstructuredIBMCoupling's windows
        equal to IBMCoupling's on 12a's mesh as node -> weight maps within
        1e-14, and the cd history within IBM_GMSH_BOX_CD_LIMIT of 12a's
-       record (no second box run).
+       record (no second box run);
+16. prime element counts, whose multigrid hierarchies take a padded
+   (fictitious-domain) first jump: the fine level is extended by a
+   Dirichlet-masked ghost band to the next even count, and the jump
+   runs the grid-layout transfers (pad, scatter, crop) instead of the
+   blocked ones; 383 and 79 admit no super-blocking factor, so every
+   fine-level apply runs in the parity layout (8 channels in 2D, 24 in
+   3D):
+   16a CavityProblem(cfg).setup().run(max_steps=2) at 383x383 (383 ->
+       192 on a 384x384 extension, then phase 3's hierarchy; 1,176,578
+       velocity dofs), float32, counts reset just before and read just
+       after; step 2's ms, setup seconds and CG iterations per solve
+       beside phase 3's; each mask's V-cycle symmetric on seeded vectors
+       within SYMMETRY_LIMIT; then stencil2d against its plain version
+       at every shape 16a logged, with the bound and cuDNN's time;
+   16b UniformFlowProblem(cfg).setup() and one solve_kle of a seeded
+       vorticity on channel3d's geometry at 31x31x79 (32x32x80
+       extension, 1,893,213 velocity dofs), float64 at the config's
+       KLE rtol of 1e-8 (stencil3d's float64 instance), counts reset
+       just before and read just after: the true float64 relative
+       residual, formed anew, within 2 x the rtol; then stencil3d
+       against its plain version at every shape 16b logged, with the
+       bound and cuDNN's time.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -230,8 +255,10 @@ import time
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "float64": 1e-12}
-# phase 10: bench.py's parity target, a true float64 relative residual
+# phase 10: bench.py's parity target, a true float64 relative residual;
+# 10a's steps, cut from 3 to make room for phase 16
 PARITY_RTOL = 1e-8
+PARITY_STEPS = 2
 # phase 9: the fine K apply and MG level 2 (the 2D shape furthest behind
 # cuDNN); fill is a copy, highest sums float32 in another order, default
 # sums TF32 products on the tensor cores in another order
@@ -283,6 +310,22 @@ IBM_CONFIGS = {
                         "dt0": 0.005},
     },
 }
+
+
+# phase 16: prime element counts, whose multigrid hierarchies take a
+# padded (fictitious-domain) first jump: the cavity at 383x383 (383 ->
+# 192 on a 384x384 extension, phase 3's hierarchy below it) and the 3D
+# channel at 31x31x79 (-> 16x16x40 on 32x32x80)
+PADDED_NELEM_2D = 383
+PADDED_NELEM_3D = (31, 31, 79)
+PADDED_STEPS = 2
+# 16a: the V-cycle's symmetry |<a, M b> - <b, M a>| <= this x |a| |M b|,
+# a float32 V-cycle at 1.18 M dofs (dots in float64)
+SYMMETRY_LIMIT = 1e-5
+# 16b: configs/channel3d.yaml's KLE rtol; the true float64 residual,
+# formed anew, within this many rtols
+PADDED_3D_RTOL = 1e-8
+PADDED_RESIDUAL_FACTOR = 2
 
 
 # phase 13b: the resumed cavity's CG iterates differ from the
@@ -628,9 +671,10 @@ def repeat_bitwise(torch, kern, xs, ws, name):
             "bitwise_equal": same}
 
 
-def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
-    """setup() + run(max_steps=3) through the kernels, the launch counts
-    set to 0 just before and read just after."""
+def phase_main(torch, stencil, kern, make_problem, key, out, extra=None,
+               steps=3):
+    """setup() + run(max_steps=steps) through the kernels, the launch
+    counts set to 0 just before and read just after."""
     marks = []
 
     def callback(n, t, dt, vort, vel):
@@ -649,7 +693,7 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
     torch.cuda.synchronize()
     t_setup = time.perf_counter()
     setup_launches = kern.launches
-    vort, t, n = p.run(max_steps=3, callback=callback)
+    vort, t, n = p.run(max_steps=steps, callback=callback)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k.name: k.launches for k in stencil.KERNELS.values()}
@@ -657,8 +701,8 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
 
     dofs = p.mesh.n_nodes * p.dim
     norm = float(torch.linalg.norm(vort))
-    if n != 3 or len(marks) != 3:
-        fail(f"{key}: expected 3 accepted steps, got {n}")
+    if n != steps or len(marks) != steps:
+        fail(f"{key}: expected {steps} accepted steps, got {n}")
     if not math.isfinite(norm) or not bool(torch.isfinite(vort).all()):
         fail(f"{key}: final vorticity is not finite")
     step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
@@ -691,8 +735,8 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None):
         res.update(extra(p, vort))
     out[key] = res
     print(f"  {dofs} velocity dofs, setup {res['setup_s']:.2f} s, "
-          f"{res['ms_per_step']:.1f} ms/step (steps 2-3), first step incl. "
-          f"initial RHS {res['first_step_incl_initial_rhs_ms']:.1f} ms, "
+          f"{res['ms_per_step']:.1f} ms/step (steps 2-{steps}), first step "
+          f"incl. initial RHS {res['first_step_incl_initial_rhs_ms']:.1f} ms, "
           f"peak memory {res['peak_mem_gib']:.2f} GiB "
           f"({res['mem_at_start_gib']:.2f} allocated at the start)",
           flush=True)
@@ -805,7 +849,8 @@ def parity_extra(torch, kern, held):
 def phase_parity_residual(torch, p, out):
     """Phase 10b, bench.py's self-check (bench.py:344-373): solve_ir on
     the final (no-slip) mask at rtol 1e-8, at the initial vorticity and
-    after step 3; the true float64 relative residual is formed anew."""
+    after 10a's last step; the true float64 relative residual is formed
+    anew."""
     from pynama_tpu_torch.kle import solve_ir
 
     name = "free_mask"
@@ -813,7 +858,8 @@ def phase_parity_residual(torch, p, out):
     rows = []
     for label, w in (
             ("initial", p._blk(p.initial_vorticity())),
-            ("after step 3", p._blk(p.vort.reshape(p._gshape(p.dim_w))))):
+            (f"after step {PARITY_STEPS}",
+             p._blk(p.vort.reshape(p._gshape(p.dim_w))))):
         res = solve_ir(p.system, p.system32, w, u_bc, mask,
                        p.free_mask32_b, rtol=PARITY_RTOL,
                        maxiter=p.kle_maxiter, inner_rtol=p.kle_inner_rtol,
@@ -875,12 +921,16 @@ def phase_refine3d(torch, kern, make_problem, out):
 
 def phase_logged_kernels(torch, stencil, kern, logged, launches, key,
                          out):
-    """Phases 10e and 12e: the kernel against its plain version at every
-    shape a leg logged, with device time (the calls captured in a CUDA
-    graph), the plain version's time and the bound; the leg's launches
-    and device time by instance (launches x device time per shape)."""
+    """Phases 10e, 12e, 13g and 16: the kernel against its plain version
+    at every shape a leg logged, with device time (the calls captured in
+    a CUDA graph), the plain version's time, the bound and the cuDNN
+    convolution's time (TF32 off); the leg's launches and device time by
+    instance (launches x device time per shape)."""
+    import torch.nn.functional as tnf
+
     from pynama_tpu_torch.scripts.stencil_sweep import graph_ms
 
+    torch.backends.cudnn.allow_tf32 = False
     rows, inst = [], {}
     for (xs, ws, name), n in sorted(
             logged.items(), key=lambda kv: -kv[1] * _flops(*kv[0][:2])):
@@ -892,23 +942,27 @@ def phase_logged_kernels(torch, stencil, kern, logged, launches, key,
                         reps)
         bound = 1e3 * max(bound_times(xs, ws, name)[:2])
         i = kern.plan(xs, ws, getattr(torch, name)).instance
-        rows.append({"x": list(xs), "W": list(ws), "dtype": name,
-                     "instance": i, "main_path_launches": n,
-                     "max_abs_err": abs_err, "max_rel_err": rel_err,
-                     "graph_ms": dev, "plain_ms": p_ms, "bound_ms": bound})
+        row = {"x": list(xs), "W": list(ws), "dtype": name,
+               "instance": i, "main_path_launches": n,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "graph_ms": dev, "plain_ms": p_ms, "bound_ms": bound,
+               "library_ms": event_ms(torch, library_call(tnf, x, W)[0],
+                                      reps)}
+        rows.append(row)
         e = inst.setdefault(i, {"launches": 0, "device_ms": 0.0})
         e["launches"] += n
         e["device_ms"] += n * dev
-        print(f"  x {str(xs):16s} W {str(ws):20s} {name} x{n:<6d} instance "
-              f"{i}: rel err {rel_err:.2e}, device {dev:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bound:.4f} ms", flush=True)
+        print(f"  x {str(xs):16s} W {str(ws):20s} {name} x{n:<6d} "
+              f"instance {i}: rel err {rel_err:.2e}, device {dev:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {bound:.4f} ms, cuDNN "
+              f"{row['library_ms']:.4f} ms", flush=True)
     if sum(e["launches"] for e in inst.values()) != launches:
         fail(f"{key}: the logged shapes hold {inst}, the leg counted "
              f"{launches} launches")
     for i, e in sorted(inst.items()):
         print(f"  instance {i}: {e['launches']} launches x device time "
-              f"per shape = {e['device_ms']:.1f} ms (setup, initial RHS, "
-              "3 steps, final solve)", flush=True)
+              f"per shape = {e['device_ms']:.1f} ms (the whole leg)",
+              flush=True)
     out[key] = {"shapes": rows, "by_instance": inst}
     return rows
 
@@ -2556,6 +2610,160 @@ def phase_ibm_gmsh_legs(torch, stencil, phase, out):
               lambda: ibm_gmsh_box_leg(torch, stencil, tmp, out))
 
 
+def padded_channel3d_config():
+    """configs/channel3d.yaml's geometry, material and KLE settings
+    (kle-rtol 1e-8, at most 2000 CG iterations) at 31x31x79 Q2 hexes:
+    31 and 79 are prime, so the first multigrid jump pads to
+    32x32x80."""
+    cfg = channel3d_config()
+    cfg["domain"]["box-mesh"]["nelem"] = list(PADDED_NELEM_3D)
+    return {**cfg, "kle-rtol": PADDED_3D_RTOL, "kle-maxiter": 2000}
+
+
+def padded_hierarchy(p, key):
+    """The hierarchy's record; fails unless level 0's jump is padded."""
+    mg = p.mg
+    ext = mg.levels[0].ext_mesh
+    if ext is None or any(lv.ext_mesh is not None for lv in mg.levels[1:]):
+        fail(f"{key}: expected a padded first jump only, got extended "
+             f"meshes {[lv.ext_mesh for lv in mg.levels]}")
+    return {"mg_levels": [list(lv.mesh.nelem) for lv in mg.levels],
+            "mg_ratios": mg.ratios, "ext_mesh": list(ext.nelem)}
+
+
+def padded_extra(torch):
+    """16a's record beside phase_main's: the hierarchy, and the
+    symmetry of each mask's V-cycle on the card on seeded vectors."""
+    import numpy as np
+
+    def extra(p, vort):
+        res = padded_hierarchy(p, "16a")
+        rng = np.random.default_rng(16)
+        sym = {}
+        for name in p._mask_names:
+            mask = getattr(p, name + "_b")
+            a, b = (torch.as_tensor(rng.normal(size=tuple(mask.shape)),
+                                    dtype=mask.dtype, device=mask.device)
+                    for _ in range(2))
+            Ma, Mb = p._minv[name](a).double(), p._minv[name](b).double()
+            a, b = a.double(), b.double()
+            gap = abs(float(torch.sum(a * Mb) - torch.sum(b * Ma)))
+            sym[name] = gap / float(torch.linalg.norm(a)
+                                    * torch.linalg.norm(Mb))
+        res["vcycle_symmetry"] = sym
+        print(f"  hierarchy {res['mg_levels']}, first jump padded to "
+              f"{res['ext_mesh']}; V-cycle symmetry |<a,Mb> - <b,Ma>| / "
+              f"(|a| |Mb|): {sym} (limit {SYMMETRY_LIMIT:g})", flush=True)
+        if not all(v <= SYMMETRY_LIMIT for v in sym.values()):
+            fail(f"16a: the padded V-cycle is not symmetric: {sym}")
+        return res
+    return extra
+
+
+def padded_solve3d(torch, stencil, kern, make_problem, out):
+    """Phase 16b: setup() and one MG-CG KLE solve (solve_kle) of the
+    padded 3D channel from a seeded vorticity, the launch counts set to
+    0 just before and read just after; the true float64 relative
+    residual, formed anew, within PADDED_RESIDUAL_FACTOR x the KLE
+    rtol. Returns the record and the logged shapes."""
+    import numpy as np
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = make_problem().setup()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
+    rng = np.random.default_rng(79)
+    w = torch.as_tensor(rng.normal(size=p._gshape(p.dim_w)), dtype=p.dtype,
+                        device=p.device)
+    t = p.t_start
+    u = p.solve_kle(t, w)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter()
+    launches = {k.name: k.launches for k in stencil.KERNELS.values()}
+    logged = dict(kern.shapes)
+    b = p.system.rhs(p._blk(w), p._solver_bc(t), p.free_mask_b)
+    r = b - p.system.apply_masked(p._blk(u), p.free_mask_b)
+    rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
+    limit = PADDED_RESIDUAL_FACTOR * p.kle_rtol
+    res = {"nelem": list(p.nelem), "velocity_dofs": p.mesh.n_nodes * p.dim,
+           "dtype": str(p.dtype).replace("torch.", ""),
+           "kle_rtol": p.kle_rtol, **padded_hierarchy(p, "16b"),
+           "setup_s": t_setup - t0, "solve_s": t_solve - t_setup,
+           "cg_iters": p.cg_iters, "true_rel_residual": rel,
+           "stencil_launches": launches[kern.name],
+           "launches_by_kernel": launches,
+           "logged_shapes": [[list(s[0]), list(s[1]), s[2], c]
+                             for s, c in logged.items()],
+           "lam_max": p.mg.lam_max,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["padded_channel3d"] = res
+    print(f"  {res['velocity_dofs']} velocity dofs, hierarchy "
+          f"{res['mg_levels']}, first jump padded to {res['ext_mesh']}; "
+          f"setup {res['setup_s']:.2f} s, solve {res['solve_s']:.2f} s, CG "
+          f"iterations {p.cg_iters}, true float64 relative residual "
+          f"{rel:.3e} (limit {limit:g}), {kern.name} launches "
+          f"{launches[kern.name]}, peak memory {res['peak_mem_gib']:.2f} "
+          "GiB", flush=True)
+    if not bool(torch.isfinite(u).all()):
+        fail("16b: the velocity is not finite")
+    if not rel <= limit:
+        fail(f"16b: true residual {rel:.3e} > {limit:g}")
+    if launches[kern.name] <= 0:
+        fail(f"16b: the solve launched no {kern.name} kernel")
+    return res, logged
+
+
+def phase_padded_legs(torch, stencil, phase, out):
+    """Phase 16 (see the module's docstring). Returns 16a's phase_main
+    record, the stencil2d rows at its shapes, 16b's record and the
+    stencil3d rows at its shapes."""
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.cases.uniform import UniformFlowProblem
+
+    k2, k3 = stencil.KERNEL, stencil.KERNEL3D
+    n2 = PADDED_NELEM_2D
+    sl, logged = phase(
+        "padded_cavity", f"[16a] padded hierarchy: {n2}x{n2} cavity, "
+        f"float32, {PADDED_STEPS} steps",
+        lambda: phase_main(torch, stencil, k2,
+                           lambda: CavityProblem(cavity_config(n2),
+                                                 dtype=torch.float32),
+                           "padded_cavity", out, extra=padded_extra(torch),
+                           steps=PADDED_STEPS))
+    base = out["cavity"]
+    print(f"  beside phase 3 (384x384, this call): step 2 "
+          f"{sl['step_ms'][0]:.1f} vs {base['step_ms'][0]:.1f} ms, setup "
+          f"{sl['setup_s']:.2f} vs {base['setup_s']:.2f} s, CG iterations "
+          f"per solve {sl['cg_iters_per_solve']:.2f} vs "
+          f"{base['cg_iters_per_solve']:.2f}", flush=True)
+    rows2 = phase(
+        "padded_cavity_kernels", "[16a] stencil2d vs plain version at the "
+        "padded cavity's shapes, with cuDNN",
+        lambda: phase_logged_kernels(torch, stencil, k2, logged,
+                                     sl["stencil_launches"],
+                                     "padded_cavity_kernels", out))
+    nx, ny, nz = PADDED_NELEM_3D
+    res3, logged3 = phase(
+        "padded_channel3d", f"[16b] padded hierarchy: channel3d {nx}x{ny}x"
+        f"{nz}, float64, one KLE solve at rtol {PADDED_3D_RTOL:g}",
+        lambda: padded_solve3d(
+            torch, stencil, k3,
+            lambda: UniformFlowProblem(padded_channel3d_config(),
+                                       dtype=torch.float64), out))
+    rows3 = phase(
+        "padded_channel3d_kernels", "[16b] stencil3d vs plain version at "
+        "the padded solve's shapes, with cuDNN",
+        lambda: phase_logged_kernels(torch, stencil, k3, logged3,
+                                     res3["stencil_launches"],
+                                     "padded_channel3d_kernels", out))
+    return sl, rows2, res3, rows3
+
+
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     """One entry of the "kernels" line; ``head`` holds the kernel's,
     the plain version's and the library call's times and the bound at the
@@ -2828,12 +3036,13 @@ def main():
         lambda: phase_breakdown(torch, stencil, out))
     sl10, logged10 = phase(
         "parity", "[10a] parity leg: 384x384 cavity, float64 refined by "
-        "kle.solve_ir to 1e-8, float32 inner solves, 3 steps",
+        f"kle.solve_ir to 1e-8, float32 inner solves, {PARITY_STEPS} steps",
         lambda: phase_main(torch, stencil, k2,
                            lambda: CavityProblem(parity_config(384),
                                                  dtype=F64),
                            "parity", out,
-                           extra=parity_extra(torch, k2, held)))
+                           extra=parity_extra(torch, k2, held),
+                           steps=PARITY_STEPS))
     phase("parity_residual",
           "[10b] parity self-check: true float64 residual of the final "
           "mask's solve",
@@ -2866,6 +3075,8 @@ def main():
                                   checked, out)
     phase_gmsh_legs(torch, stencil, phase, out)
     phase_ibm_gmsh_legs(torch, stencil, phase, out)
+    sl16a, rows16a, res16b, rows16b = phase_padded_legs(torch, stencil,
+                                                        phase, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),
@@ -2878,7 +3089,8 @@ def main():
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
                         + sl10["stencil_launches"] + sum(ws2.values())
-                        + sum(ibm2.values()) + sum(cli2.values()),
+                        + sum(ibm2.values()) + sum(cli2.values())
+                        + sl16a["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
                         also_replaces=["pynama_tpu/ops/pallas_stencil.py:273"],
@@ -2892,13 +3104,22 @@ def main():
                         cli_leg_launches=cli2,
                         cli_leg_max_abs_err=max(
                             (r["max_abs_err"] for r in rows13),
-                            default=None)),
+                            default=None),
+                        padded_leg_launches={
+                            "16a": sl16a["stencil_launches"]},
+                        padded_leg_max_abs_err=max(
+                            r["max_abs_err"] for r in rows16a)),
         main_path_entry(k3, rows3, sl3["stencil_launches"]
-                        + sl11c["stencil_launches"],
+                        + sl11c["stencil_launches"]
+                        + res16b["stencil_launches"],
                         "pynama_tpu/ops/pallas_stencil.py:218",
                         out["stencil3d_v1_launches"],
                         also_replaces=["pynama_tpu/ops/pallas_stencil.py:310"],
-                        ws_leg_launches={"11c": sl11c["stencil_launches"]}),
+                        ws_leg_launches={"11c": sl11c["stencil_launches"]},
+                        padded_leg_launches={
+                            "16b": res16b["stencil_launches"]},
+                        padded_leg_max_abs_err=max(
+                            r["max_abs_err"] for r in rows16b)),
         breakdown,
     ]}
     out.update(phase_s=phase_s, allocated_after_gib=mem_after,

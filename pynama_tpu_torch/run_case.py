@@ -27,8 +27,10 @@ spacing of the uniform region around the body: ``-opt
 domain.h-min=...``). The -test modes build their problem from the
 config's domain and ignore ``-gmsh``; on a Gmsh config ``kle`` and
 ``chartkle`` run, and ``chart`` (which refines a box mesh) raises
-ValueError. ``-sharded`` (distributed runs) is not ported yet and raises
-NotImplementedError.
+ValueError. Every ``-nelem`` runs, prime element counts too (``-nelem
+383 383``: the multigrid pads such a level to the next even count, a
+fictitious-domain jump). Only ``-sharded`` (distributed runs) is not
+ported yet: it raises NotImplementedError.
 """
 
 import argparse
@@ -383,7 +385,8 @@ def main(argv=None):
                     help="cap the adaptive time step (config 'max-dt')")
     ap.add_argument("-sharded", type=int, default=None, metavar="N",
                     help="a distributed run over N devices (not ported "
-                         "yet: raises NotImplementedError)")
+                         "yet, the one option that raises "
+                         "NotImplementedError)")
     ap.add_argument("-opt", action="append", default=[], metavar="KEY=VALUE",
                     help="override any config entry (repeatable; dotted "
                          "keys reach nested sections, values parse as "

@@ -1,13 +1,16 @@
 """Geometric multigrid V-cycle preconditioner for the KLE stiffness K.
 
 Port of pynama_tpu/solvers/multigrid.py, blocked path: the same box
-re-meshed coarser per level (ratios 2/3/5, at most 5 levels), Galerkin
-coarse operators computed on the host (K_c^el = sum_s I_s^T K_f^el I_s),
-a vertex-star patch (additive Schwarz) smoother under Chebyshev, blocked
-stride-m transfers with exact boundary corrections, and a dense inverse
-on the coarsest level. Every smoother and operator apply goes through
-the stencil kernel (ops/stencil.py); the transfers are small matmul tap
-loops, as in the reference.
+re-meshed coarser per level (ratios 2/3/5, at most 5 levels; an element
+count that none of them divides is padded to the next even count by a
+Dirichlet-masked ghost band, a fictitious-domain jump), Galerkin coarse
+operators computed on the host (K_c^el = sum_s I_s^T K_f^el I_s), a
+vertex-star patch (additive Schwarz) smoother under Chebyshev, blocked
+stride-m transfers with exact boundary corrections (grid-layout ones at
+a padded jump), and a dense inverse on the coarsest level. Every
+smoother and operator apply goes through the stencil kernel
+(ops/stencil.py); the transfers are small matmul tap loops, as in the
+reference.
 """
 
 import itertools
@@ -172,12 +175,16 @@ def _subcell_interp_matrices(ngl, dim, ratio=2):
 
 
 def coarsening_ratios(mesh, coarsest_max_dofs=1500, max_levels=5):
-    """Per-jump coarsening ratios, fine to coarse.
+    """Per-jump (ratio, ne_ext), fine to coarse.
 
-    Smallest admissible ratio of 2/3/5 first, until the coarse level has
-    fewer than coarsest_max_dofs dofs; then adjacent jumps merge from the
-    coarse end (product <= 8) until at most max_levels levels remain —
-    kept so hierarchies and iteration counts match the reference.
+    Smallest admissible ratio of 2/3/5 first; where none divides every
+    axis (and every axis has at least 3 elements) the fine level is
+    extended to the next even count, ne_ext, by a ghost band at the upper
+    side and halved (a padded, fictitious-domain jump). Until the coarse
+    level has fewer than coarsest_max_dofs dofs; then adjacent pad-free
+    jumps merge from the coarse end (product <= 8) until at most
+    max_levels levels remain -- kept so hierarchies and iteration counts
+    match the reference.
     """
     def dofs(nel):
         return BoxMesh(nelem=tuple(nel), lower=mesh.lower, upper=mesh.upper,
@@ -192,18 +199,24 @@ def coarsening_ratios(mesh, coarsest_max_dofs=1500, max_levels=5):
         else:
             if not all(n >= 3 for n in ne):
                 break  # tiny: current ne is coarsest
-            raise NotImplementedError(
-                f"nelem={tuple(ne)} needs a padded (fictitious-domain) "
-                "multigrid jump: not ported yet (ROADMAP.md queue 1 #4, "
-                "padded MG jumps)")
-        jumps.append(r)
-        ne = [n // r for n in ne]
+            r = 2  # pad to the next even count and halve
+        ne_ext = tuple(-(-n // r) * r for n in ne)
+        jumps.append((r, ne_ext))
+        ne = [n // r for n in ne_ext]
         if dofs(ne) < coarsest_max_dofs:
             break
+
+    def padfree(i):
+        ne_in = tuple(mesh.nelem) if i == 0 else tuple(
+            n // jumps[i - 1][0] for n in jumps[i - 1][1])
+        return jumps[i][1] == ne_in
+
     while len(jumps) + 1 > max_levels:
         for i in range(len(jumps) - 2, -1, -1):
-            if jumps[i] * jumps[i + 1] <= 8:
-                jumps[i:i + 2] = [jumps[i] * jumps[i + 1]]
+            if (jumps[i][0] * jumps[i + 1][0] <= 8
+                    and padfree(i) and padfree(i + 1)):
+                jumps[i:i + 2] = [(jumps[i][0] * jumps[i + 1][0],
+                                   jumps[i][1])]
                 break
         else:
             break
@@ -225,6 +238,9 @@ class _Level:
     mult_inv: Optional[torch.Tensor] = None  # grid 1/multiplicity
     mult_b: Optional[torch.Tensor] = None    # blocked 1/multiplicity
     pad_b: Optional[torch.Tensor] = None     # blocked pad mask
+    # extended fine mesh of a padded (fictitious-domain) jump: the grid
+    # transfers pad/crop between it and the real one (None: no pad)
+    ext_mesh: Optional[BoxMesh] = None
 
 
 class MGPreconditioner:
@@ -248,12 +264,21 @@ class MGPreconditioner:
 
         jumps = coarsening_ratios(mesh, coarsest_max_dofs, max_levels)
         meshes = [mesh]
-        for r in jumps:
+        ext_meshes = []  # per jump: the extended fine mesh, or None
+        for r, ne_ext in jumps:
             prev = meshes[-1]
-            meshes.append(BoxMesh(nelem=tuple(n // r for n in prev.nelem),
-                                  lower=prev.lower, upper=prev.upper,
+            upper_ext = tuple(
+                prev.lower[a] + ne_ext[a]
+                * ((prev.upper[a] - prev.lower[a]) / prev.nelem[a])
+                for a in range(self.dim))
+            ext_meshes.append(
+                None if tuple(ne_ext) == tuple(prev.nelem) else
+                BoxMesh(nelem=ne_ext, lower=prev.lower, upper=upper_ext,
+                        ngl=mesh.ngl))
+            meshes.append(BoxMesh(nelem=tuple(n // r for n in ne_ext),
+                                  lower=prev.lower, upper=upper_ext,
                                   ngl=mesh.ngl))
-        self.ratios = list(jumps)
+        self.ratios = [r for r, _ in jumps]
         self.usable = len(meshes) >= min_levels and (
             meshes[-1].n_nodes * mesh.dim <= coarsest_max_dofs * 2)
         if not self.usable:
@@ -299,6 +324,14 @@ class MGPreconditioner:
             gshape = tuple(reversed(m.npts)) + (m.dim,)
             dmask = np.ones(m.n_nodes * m.dim)
             dmask[m.node_dofs(m.boundary_nodes, m.dim)] = 0.0
+            if li > 0 and tuple(m.upper) != tuple(mesh.upper):
+                # coarse level of a padded jump: Dirichlet-mask the ghost
+                # band beyond the original domain
+                beyond = np.zeros(m.n_nodes, dtype=bool)
+                for a in range(self.dim):
+                    tol = 1e-9 * (m.upper[a] - m.lower[a])
+                    beyond |= m.coords[:, a] > mesh.upper[a] + tol
+                dmask[np.repeat(beyond, m.dim)] = 0.0
             lvl = _Level(mesh=m, K=K_op, diag=diag_flat.reshape(gshape),
                          mask=tens(dmask.reshape(gshape)),
                          mask_np=dmask.reshape(gshape))
@@ -310,11 +343,15 @@ class MGPreconditioner:
             if li + 1 < len(meshes):
                 lvl.ratio = self.ratios[li]
                 lvl.interp_k = tens(interp_for(lvl.ratio))
-                counts = np.zeros(m.n_nodes)
-                np.add.at(counts, np.asarray(m.cell2node).reshape(-1), 1.0)
-                lvl.mult_inv = tens(
-                    np.repeat(1.0 / counts, m.dim).reshape(gshape))
-                lvl.mult_b = K_op.to_blocked(lvl.mult_inv)
+                lvl.ext_mesh = ext_meshes[li]
+                # fine-node multiplicity under the subcell scatter, over
+                # the extended grid of a padded jump (mult_b, the blocked
+                # copy, is made in build for the jumps that use it)
+                em = lvl.ext_mesh if lvl.ext_mesh is not None else m
+                counts = np.zeros(em.n_nodes)
+                np.add.at(counts, np.asarray(em.cell2node).reshape(-1), 1.0)
+                lvl.mult_inv = tens(np.repeat(1.0 / counts, m.dim).reshape(
+                    tuple(reversed(em.npts)) + (m.dim,)))
             self.levels.append(lvl)
 
         # vertex-star additive-Schwarz smoother blocks: per-level patch
@@ -421,22 +458,33 @@ class MGPreconditioner:
         return ncells, step, offset
 
     def _prolong(self, lvl: _Level, next_mesh, xc):
-        """Natural injection coarse -> fine (grid layout)."""
+        """Natural injection coarse -> fine (grid layout). A padded jump
+        scatters onto the extended fine grid and crops to the real one."""
         d = self.dim
         N = self.elem.ngl
+        padded = lvl.ext_mesh is not None
+        em = lvl.ext_mesh if padded else lvl.mesh
         xce = grid_gather(xc, N, tuple(next_mesh.nelem), N - 1, (0,) * d)
-        fine = xc.new_zeros(tuple(reversed(lvl.mesh.npts)) + (d,))
+        fine = xc.new_zeros(tuple(reversed(em.npts)) + (d,))
         for s in range(lvl.ratio**d):
             vals = xce @ lvl.interp_k[s].T
             ncells, step, offset = self._subcell_params(next_mesh, s,
                                                         lvl.ratio)
             fine = grid_scatter_add(fine, vals, N, ncells, step, offset)
-        return fine * lvl.mult_inv
+        fine = fine * lvl.mult_inv
+        if padded:
+            fine = fine[tuple(slice(0, n) for n in reversed(lvl.mesh.npts))]
+        return fine
 
     def _restrict(self, lvl: _Level, next_mesh, rf):
-        """Exact adjoint of _prolong: fine residual -> coarse residual."""
+        """Exact adjoint of _prolong: fine residual -> coarse residual (a
+        padded jump zero-pads it to the extended grid first)."""
         d = self.dim
         N = self.elem.ngl
+        if lvl.ext_mesh is not None:
+            rf = _pad_spatial(rf, [
+                (0, en - rn) for en, rn in zip(reversed(lvl.ext_mesh.npts),
+                                               reversed(lvl.mesh.npts))])
         rfm = rf * lvl.mult_inv
         rc = rf.new_zeros(tuple(reversed(next_mesh.npts)) + (d,))
         for s in range(lvl.ratio**d):
@@ -459,7 +507,8 @@ class MGPreconditioner:
         lvl, nxt = self.levels[li], self.levels[li + 1]
         sf, sc = lvl.K.eff_ngl - 1, nxt.K.eff_ngl - 1
         res = None
-        if (lvl.ratio * sc) % sf == 0:
+        # a padded jump's block map would run over a grid it does not tile
+        if lvl.ext_mesh is None and (lvl.ratio * sc) % sf == 0:
             W1, m, e_lo = self._transfer_1d(sf, sc, lvl.ratio)
             Wr = self._tensor_kernel(W1, self.dim, self.dim)
             res = (torch.as_tensor(Wr, dtype=self.dtype, device=self.device),
@@ -679,6 +728,9 @@ class MGPreconditioner:
                     continue
                 tk_use[li] = True
                 tk_corr[li] = bool(li == 0 and needs_corr[0])
+                if levels[li].mult_b is None:
+                    levels[li].mult_b = levels[li].K.to_blocked(
+                        levels[li].mult_inv)
                 if tk_corr[li]:
                     self._transfer_subkernels(li)
         # which jumps run blocked-native transfers, and with corrections

@@ -33,7 +33,8 @@ from pynama_tpu_torch.elements.spectral import SpectralElement
 from pynama_tpu_torch.kle import build_kle_system, build_operators
 from pynama_tpu_torch.mesh.unstructured import (UnstructuredHexMesh,
                                                 UnstructuredQuadMesh)
-from pynama_tpu_torch.ops.assembly import ElementOp, make_element_op
+from pynama_tpu_torch.ops.assembly import (ElementOp, contributor_table,
+                                           make_element_op)
 from pynama_tpu_torch.solvers import schwarz
 from pynama_tpu_torch.solvers.schwarz import build_element_schwarz
 from tests.blas_threads import blas_threads
@@ -270,6 +271,37 @@ def test_schwarz_matches_reference(dim, patches, coarse, monkeypatch):
     op = convert.element_op(rop.A, rop.in_dofs, rop.out_dofs, rop.out_size,
                             device=CPU)
     assert rel(op(T(ext)).numpy()[:-1], rop(jnp.asarray(ext))[:-1]) <= 1e-13
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_schwarz_coarse_table_drops_zero_weight_slots(dim, monkeypatch):
+    """The two-level Schwarz coarse scatter's contributor table is no
+    wider than the busiest corner's count of nonzero-weight
+    corner_interp slots. corner_interp pads each node's row with
+    zero-weight slots on corner 0; kept in the table, they made corner
+    0's row as long as the mesh (a 24x24 Gmsh IBM run took 63 s on one
+    CPU thread instead of 4)."""
+    widths = []
+
+    def spy(out_dofs, out_size):
+        table = contributor_table(out_dofs, out_size)
+        widths.append((out_size, table.shape[1]))
+        return table
+
+    monkeypatch.setattr(schwarz, "contributor_table", spy)
+    m, _ = quad_meshes(5, 4) if dim == 2 else hex_meshes()
+    K_el = np.asarray(SpectralElement(m.ngl, dim).kle_matrices(
+        m.cell_corners)[0])
+    pc = build_element_schwarz(m, K_el, dirichlet_mask(m, dim), F64,
+                               device=CPU)
+    assert pc.coarse is not None
+    cols, wts = m.corner_interp
+    nv = int(cols.max()) + 1
+    busiest = int(np.bincount(cols[wts != 0], minlength=nv).max())
+    # the fault's width, all slots on corner 0 counted, is far wider
+    assert np.bincount(cols.reshape(-1), minlength=nv).max() > 2 * busiest
+    coarse = [w for size, w in widths if size == nv]
+    assert len(coarse) == 1 and coarse[0] <= busiest
 
 
 def test_schwarz_guards_match_reference(monkeypatch):

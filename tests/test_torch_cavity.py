@@ -57,10 +57,13 @@ def test_unported_configs_and_missing_cuda_raise():
     # the reference's (tests/test_torch_gmres.py holds its solves to CG)
     assert CavityProblem({**cfg, "kle-solver": "gmres"},
                          device="cpu").kle_solver == "gmres"
-    # 7x7 needs a padded (fictitious-domain) multigrid jump
+    # 7x7 takes a padded (fictitious-domain) multigrid jump: 7 -> 4 on
+    # an 8x8 extension of the fine level
     cfg7 = {**cfg, "domain": {"ngl": 3, "box-mesh": {"nelem": [7, 7]}}}
-    with pytest.raises(NotImplementedError, match="padded"):
-        CavityProblem(cfg7, device="cpu").setup()
+    p7 = CavityProblem(cfg7, device="cpu").setup()
+    assert p7.mg.ratios == [2] and p7.mg.levels[1].mesh.nelem == (4, 4)
+    assert p7.mg.levels[0].ext_mesh.nelem == (8, 8)
+    assert set(p7._minv) == set(p7._mask_names)
     # a gmsh-file domain is ported: the constructor reads the file, so a
     # missing one raises FileNotFoundError (tests/test_torch_gmsh_*.py run
     # real ones; IBM on one still raises NotImplementedError)

@@ -11,7 +11,9 @@ non-square and 8-channel shapes; a single-mask resume bit for bit, and
 kle-solver: gmres against the CPU; the breakdown kernel in every mode
 against its plain version, and under a CUDA graph; a Gmsh cavity
 (ElementOps, Schwarz) repeated bit for bit and against the CPU, and the
-scatter of the multigrid's grid transfers repeated bit for bit.
+scatter of the multigrid's grid transfers repeated bit for bit; a
+padded-hierarchy cavity through the kernels against the plain version,
+and the padded jump's grid transfers on the card.
 
 Marked ``cuda``: these skip where torch.cuda.is_available() is false and
 run on a machine with an NVIDIA GPU and nvcc:
@@ -762,3 +764,67 @@ def test_mg_grid_transfers_repeat_bitwise(cuda, dtype):
     for _ in range(9):
         assert torch.equal(mg._prolong(lvl, nxt, xc), p0)
         assert torch.equal(mg._restrict(lvl, nxt, rf), r0)
+
+
+def test_padded_cavity_kernels_match_plain(cuda, monkeypatch):
+    """A 23x23 float32 cavity, whose multigrid takes a padded
+    (fictitious-domain) jump (23 -> 12 on a 24x24 extension), 3 steps:
+    through the kernels without ever reaching the plain version, then
+    with the plain version forced; the vorticities within 1e-4 (phase
+    6's bound for the 16x16 cavity)."""
+    import chip_smoke
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+
+    plain = stencil.conv_blocked_plain
+    cfg = chip_smoke.cavity_config(23)
+    monkeypatch.setattr(stencil, "conv_blocked_plain", refuse)
+    before = stencil.KERNEL.launches
+    p = CavityProblem(cfg, dtype=torch.float32).setup()
+    assert p.mg.levels[0].ext_mesh.nelem == (24, 24)
+    vk, tk, nk = p.run(max_steps=3)
+    assert nk == 3 and torch.isfinite(vk).all()
+    assert stencil.KERNEL.launches > before
+    monkeypatch.setattr(stencil, "conv_blocked_plain", plain)
+    monkeypatch.setattr(stencil, "conv_blocked", plain)
+    before = stencil.KERNEL.launches
+    vp, tp, np_ = CavityProblem(cfg, dtype=torch.float32).setup().run(
+        max_steps=3)
+    assert stencil.KERNEL.launches == before and np_ == nk and tp == tk
+    rel = float(torch.linalg.norm(vk - vp) / torch.linalg.norm(vp))
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_padded_transfers_on_card(cuda, dtype):
+    """The padded jump of the 383x383 cavity's hierarchy (383 -> 192 on
+    a 384x384 extension): _prolong/_restrict 10 times bit for bit, and in
+    float64 within 1e-13 of the same transfers on the CPU."""
+    import dataclasses
+
+    from pynama_tpu_torch.elements.spectral import SpectralElement
+    from pynama_tpu_torch.mesh.structured import BoxMesh
+    from pynama_tpu_torch.solvers.multigrid import MGPreconditioner
+
+    mesh = BoxMesh(nelem=(383, 383), lower=(0, 0), upper=(1, 1), ngl=3)
+    mg = MGPreconditioner(mesh, SpectralElement(3, 2), dtype=dtype,
+                          device=cuda)
+    lvl, nxt = mg.levels[0], mg.levels[1].mesh
+    assert lvl.ext_mesh.nelem == (384, 384) and nxt.nelem == (192, 192)
+    rng = np.random.default_rng(3)
+    xc = torch.as_tensor(rng.normal(size=tuple(reversed(nxt.npts)) + (2,)),
+                         dtype=dtype, device=cuda)
+    rf = torch.as_tensor(
+        rng.normal(size=tuple(reversed(mesh.npts)) + (2,)), dtype=dtype,
+        device=cuda)
+    p0, r0 = mg._prolong(lvl, nxt, xc), mg._restrict(lvl, nxt, rf)
+    assert p0.shape == rf.shape and r0.shape == xc.shape
+    for _ in range(9):
+        assert torch.equal(mg._prolong(lvl, nxt, xc), p0)
+        assert torch.equal(mg._restrict(lvl, nxt, rf), r0)
+    if dtype == torch.float64:
+        host = dataclasses.replace(lvl, interp_k=lvl.interp_k.cpu(),
+                                   mult_inv=lvl.mult_inv.cpu())
+        for card, cpu in ((p0, mg._prolong(host, nxt, xc.cpu())),
+                          (r0, mg._restrict(host, nxt, rf.cpu()))):
+            rel = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+            assert rel <= 1e-13, rel

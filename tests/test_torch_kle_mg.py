@@ -100,16 +100,41 @@ def test_builders_default_to_the_card():
 
 
 def test_coarsening_ratios():
-    """The reference's hierarchy rule: 2/3/5 first, 5-level cap merging
-    from the coarse end; padded jumps are not ported and raise."""
+    """The reference's hierarchy rule: 2/3/5 first, a padded jump (to
+    the next even count, halved) where none divides, the 5-level cap
+    merging pad-free jumps from the coarse end."""
+    def jumps(*nelem):
+        dim = len(nelem)
+        return coarsening_ratios(BoxMesh(nelem, (0,) * dim, (1,) * dim, 3))
+
     def ratios(n):
-        return coarsening_ratios(BoxMesh((n, n), (0, 0), (1, 1), 3))
+        return [r for r, _ in jumps(n, n)]
 
     assert ratios(384) == [2, 2, 2, 4]
     assert ratios(16) == [2] and ratios(8) == [2]
     assert ratios(45) == [3, 3] and ratios(50) == [2, 5]
-    with pytest.raises(NotImplementedError, match="padded"):
-        ratios(7)
+    # padded jumps: ne_ext is the extended fine count of each jump
+    assert jumps(7, 7) == [(2, (8, 8))]
+    assert jumps(23, 23) == [(2, (24, 24))]
+    assert jumps(383, 383) == [(2, (384, 384)), (2, (192, 192)),
+                               (2, (96, 96)), (4, (48, 48))]
+    assert jumps(384, 384) == jumps(383, 383)
+    assert jumps(31, 31, 79) == [(2, (32, 32, 80)), (2, (16, 16, 40)),
+                                 (2, (8, 8, 20)), (2, (4, 4, 10))]
+    # the levels they give: only the first jump is padded
+    def levels(*nelem):
+        out = [tuple(nelem)]
+        for r, ne_ext in jumps(*nelem):
+            out.append(tuple(n // r for n in ne_ext))
+        return out
+
+    assert levels(383, 383) == [(383, 383), (192, 192), (96, 96),
+                                (48, 48), (12, 12)]
+    assert levels(31, 31, 79) == [(31, 31, 79), (16, 16, 40), (8, 8, 20),
+                                  (4, 4, 10), (2, 2, 5)]
+    assert BoxMesh((383, 383), (0, 0), (1, 1), 3).n_nodes * 2 == 1176578
+    assert BoxMesh((31, 31, 79), (0, 0, 0), (1, 1, 2.5), 3).n_nodes * 3 \
+        == 1893213
 
 
 @pytest.fixture(scope="module")
