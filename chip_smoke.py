@@ -41,14 +41,16 @@ Phases, each timed; any failure exits non-zero:
    checked) without the profiler;
 9. the stencil cost breakdown (pynama_tpu_torch/scripts/stencil_breakdown.py,
    its own path, not the main path's): at 97x97x128 (the fine K apply)
-   and 25x25x128 (MG level 2), tile rows 8 and 16, each mode of the
-   breakdown kernel against its plain version (fill exactly, IEEE float32
-   to 1e-5, TF32 to 1e-4 of the plain version on TF32-rounded inputs),
-   then every row of run_breakdown timed with the launch counts reset
-   just before; full/highest at tile rows 8 must time within 25% of the
-   stencil2d v1 row (the breakdown measures the design it takes apart:
-   the same instance), with the production stencil2d row reported
-   beside it;
+   and 25x25x128 (MG level 2), tile rows 8 and 16, both designs (the
+   implicit GEMM that production runs, and the first one, v1) in every
+   mode and precision against the plain version (fill exactly, IEEE
+   float32 to 1e-5, TF32 to 1e-4 of the plain version on TF32-rounded
+   inputs); full/highest at tile rows 8 must equal stencil.conv_blocked
+   bit for bit (the breakdown runs production's instance and plan); then
+   every row of run_breakdown and both cuDNN yardsticks (TF32 off and
+   on) timed with the launch counts reset just before: full/highest at
+   tile rows 8 must time within 25% of the production row, and no full
+   or mm row of the new design may be slower than its [v1] row;
 10. the parity leg (float64 state refined by kle.solve_ir to a true
    relative residual of 1e-8, float32 multigrid-CG inner solves;
    bench.py's parity settings):
@@ -242,6 +244,7 @@ import argparse
 import contextlib
 import gc
 import importlib.util
+import itertools
 import json
 import math
 import os
@@ -264,6 +267,8 @@ PARITY_STEPS = 2
 # sums TF32 products on the tensor cores in another order
 BREAKDOWN_SHAPES = ((97, 97, 128), (25, 25, 128))
 BREAKDOWN_TOL = {"fill": 0.0, "highest": 1e-5, "default": 1e-4}
+# full/highest at tile rows 8 against the production row: the same
+# instance and plan, so only timing noise separates them
 SAME_DESIGN_GAP = 0.25
 # phase 11: a ws leg's final vorticity against its ws-off phase's
 WS_LIMIT = 1e-4
@@ -2804,8 +2809,10 @@ def main_path_entry(kern, rows, launches, replaces, v1_launches, **more):
 
 
 def phase_breakdown(torch, stencil, out):
-    """Phase 9: the breakdown kernel against its plain version in every
-    mode, then every row of run_breakdown timed; returns the kernel's
+    """Phase 9: the breakdown kernel of both designs against its plain
+    version in every mode, precision and tile, full/highest at TR 8
+    against stencil.conv_blocked bit for bit, then every row of
+    run_breakdown and the cuDNN yardsticks timed; returns the kernel's
     entry for the "kernels" line."""
     import numpy as np
     import torch.nn.functional as tnf
@@ -2813,11 +2820,12 @@ def phase_breakdown(torch, stencil, out):
     from pynama_tpu_torch.scripts import stencil_breakdown as sb
 
     torch.backends.cudnn.allow_tf32 = False
-    # the static SASS of every instance of the tiled 2D kernel: shared
-    # loads (LDS) and FMAs per chunk of the unrolled sweep
+    # the static SASS of every kernel of stencil2d and the breakdown:
+    # shared loads and stores, FMAs, wgmmas and cp.asyncs per chunk of
+    # the unrolled sweep
     sass = {}
     for k in (stencil.KERNEL, stencil.BREAKDOWN):
-        counts = sb.library_sass(k)
+        counts = sb.library_sass(k, sb.SASS_OPS_BREAKDOWN)
         if counts is None:
             print(f"  {k.name}: no cuobjdump, no SASS counts", flush=True)
             continue
@@ -2825,7 +2833,7 @@ def phase_breakdown(torch, stencil, out):
             sass[f"{k.name}: {name}"] = c
             print(f"  SASS {k.name}: {name}: " + ", ".join(
                 f"{op} {n}" for op, n in c.items()), flush=True)
-    checks, inputs = [], {}
+    checks, inputs, bitwise = [], {}, []
     for shape in BREAKDOWN_SHAPES:
         rng = np.random.default_rng(sum(shape))
         C = shape[-1]
@@ -2835,88 +2843,148 @@ def phase_breakdown(torch, stencil, out):
                             dtype=torch.float32, device="cuda")
         inputs[shape] = x, W
         x64, W64 = x.double(), W.double()
-        for TR in sb.TILE_ROWS:
-            for name, mode, prec in sb.KERNEL_ROWS:
-                y = sb.make_breakdown(mode, prec, TR)(x, W).double()
-                ref = sb.breakdown_plain(mode, prec, x64, W64)
-                abs_err = float((y - ref).abs().max())
-                rel = abs_err / float(ref.abs().max())
-                tol = BREAKDOWN_TOL["fill" if mode == "fill" else prec]
-                row = {"x": list(shape), "TR": TR, "row": name,
-                       "max_abs_err": abs_err, "max_rel_err": rel,
-                       "tolerance": tol}
-                msg = (f"  x {shape} TR {TR:2d} {name:16s} rel err "
-                       f"{rel:.2e} (limit {tol:g})")
-                if mode != "fill" and prec == "default":
-                    unr = sb.breakdown_plain(mode, "highest", x64, W64)
-                    row["rel_err_vs_unrounded"] = float(
-                        (y - unr).abs().max()) / float(unr.abs().max())
-                    msg += (f"; {row['rel_err_vs_unrounded']:.2e} against "
-                            "the unrounded plain version (reported only)")
-                checks.append(row)
-                print(msg, flush=True)
-                if not rel <= tol:
-                    fail(f"stencil_breakdown {name} TR {TR} at x {shape}: "
-                         f"{rel:.3e} > {tol:g}")
+        refs = {(mode, prec): sb.breakdown_plain(mode, prec, x64, W64)
+                for mode in sb.MODES for prec in sb.PRECISIONS}
+        for design, TR, mode, prec in itertools.product(
+                sb.DESIGNS, sb.TILE_ROWS, sb.MODES, sb.PRECISIONS):
+            y32 = sb.make_breakdown(mode, prec, TR, design)(x, W)
+            y, ref = y32.double(), refs[mode, prec]
+            abs_err = float((y - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            tol = BREAKDOWN_TOL["fill" if mode == "fill" else prec]
+            name = f"{mode}/{prec} [{design}]"
+            row = {"x": list(shape), "TR": TR, "design": design,
+                   "mode": mode, "precision": prec, "max_abs_err": abs_err,
+                   "max_rel_err": rel, "tolerance": tol}
+            msg = (f"  x {shape} TR {TR:2d} {name:24s} rel err {rel:.2e} "
+                   f"(limit {tol:g})")
+            if mode != "fill" and prec == "default":
+                unr = refs[mode, "highest"]
+                row["rel_err_vs_unrounded"] = float(
+                    (y - unr).abs().max()) / float(unr.abs().max())
+                msg += (f"; {row['rel_err_vs_unrounded']:.2e} against the "
+                        "unrounded plain version (reported only)")
+            checks.append(row)
+            print(msg, flush=True)
+            if not rel <= tol:
+                fail(f"stencil_breakdown {name} TR {TR} at x {shape}: "
+                     f"{rel:.3e} > {tol:g}")
+            if (design, TR, mode, prec) == ("igemm", 8, "full", "highest"):
+                same = torch.equal(y32, stencil.conv_blocked(x, W))
+                bitwise.append({"x": list(shape), "equal": same,
+                                "plan": sb.breakdown_plan(
+                                    prec, TR, shape)._asdict()})
+                print(f"  x {shape} TR  8 full/highest vs "
+                      f"stencil.conv_blocked: bitwise {same}", flush=True)
+                if not same:
+                    fail(f"full/highest at TR 8 is not stencil2d's output "
+                         f"bit for bit at x {shape}: the breakdown does not "
+                         "run production's design")
 
     for k in stencil.LIBRARIES:
         k.reset_counts()
-    runs = []
+    runs, library = [], {}
     for shape in BREAKDOWN_SHAPES:
         for TR in sb.TILE_ROWS:
             print(f"  shape {shape} TR={TR}: graph ms / eager ms per apply, "
                   "bound, share of the bound", flush=True)
             rows = sb.run_breakdown(*shape, TR)
-            runs.append({"x": list(shape), "TR": TR, "rows": rows})
+            # the TF32 family's staging alone (fill has one row in the
+            # TPU script's table, the IEEE family's)
+            fill_tf32 = sb.make_breakdown("fill", "default", TR)
+            graph_ms, eager_ms = sb.time_chain(
+                lambda v: fill_tf32(v, inputs[shape][1]), inputs[shape][0])
+            runs.append({"x": list(shape), "TR": TR, "rows": rows,
+                         "fill_default_ms": {"graph_ms": graph_ms,
+                                             "eager_ms": eager_ms}})
             for r in rows:
                 print(f"    {r['name']:<54s} {r['graph_ms']:8.4f} "
                       f"{r['eager_ms']:8.4f}  bound {r['bound_ms']:.4f} "
-                      f"({r['bound_by']})  {100 * r['share']:5.1f}%",
+                      f"({r['bound_by']})  {100 * r['share']:5.1f}%"
+                      + (f"  [{r['note']}]" if "note" in r else ""),
                       flush=True)
+        library[shape] = sb.cudnn_rows(*shape)
+        for r in library[shape]:
+            print(f"    {r['name']:<54s} {r['graph_ms']:8.4f} "
+                  f"{r['eager_ms']:8.4f}  bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})  {100 * r['share']:5.1f}%  x {shape}",
+                  flush=True)
     launches = stencil.BREAKDOWN.launches
     if launches <= 0:
         fail("phase 9 launched no stencil_breakdown kernel")
 
-    split = []
+    split, slower = [], []
     for run in runs:
         t = {r["name"]: r["graph_ms"] for r in run["rows"]}
-        full, prod, v1 = t["full/highest"], t[sb.PRODUCTION], t[sb.V1]
-        split.append({"x": run["x"], "TR": run["TR"], "full": full,
-                      "fill": t["fill-only"], "mm": t["mm-only/highest"],
-                      "v1": v1, "full_over_v1": full / v1,
-                      "production": prod, "production_over_v1": prod / v1})
+        lib = {r["name"]: r["graph_ms"] for r in library[tuple(run["x"])]}
+        full, prod = t["full/highest"], t[sb.PRODUCTION]
+        split.append({
+            "x": run["x"], "TR": run["TR"], "full": full,
+            "fill": t["fill-only"], "mm": t["mm-only/highest"],
+            "production": prod, "full_over_production": full / prod,
+            "full_default": t["full/default"],
+            "fill_default": run["fill_default_ms"]["graph_ms"],
+            "mm_default": t["mm-only/default"],
+            "cudnn_tf32_off": lib[sb.CUDNN["highest"]],
+            "cudnn_tf32_on": lib[sb.CUDNN["default"]],
+            "v1": {n: t[n + " [v1]"] for n, _, _ in sb.KERNEL_ROWS}})
         print(f"  x {tuple(run['x'])} TR {run['TR']:2d}: full/highest "
               f"{full:.4f} ms | fill-only {t['fill-only']:.4f} + "
               f"mm-only/highest {t['mm-only/highest']:.4f} = "
-              f"{t['fill-only'] + t['mm-only/highest']:.4f} ms | stencil2d "
-              f"v1 {v1:.4f} ms, full / v1 {full / v1:.3f} | production "
-              f"stencil2d {prod:.4f} ms, production / v1 {prod / v1:.3f}",
-              flush=True)
-        if run["TR"] == 8 and abs(full / v1 - 1) > SAME_DESIGN_GAP:
-            fail(f"full/highest at TR 8 ({full:.4f} ms) is not stencil2d's "
-                 f"first design ({v1:.4f} ms) at x {run['x']}: the "
-                 "breakdown does not measure the design it takes apart")
+              f"{t['fill-only'] + t['mm-only/highest']:.4f} ms | production "
+              f"stencil2d {prod:.4f} ms, full / production "
+              f"{full / prod:.3f} | full/default {t['full/default']:.4f}, "
+              f"fill/default {run['fill_default_ms']['graph_ms']:.4f}, "
+              f"mm-only/default {t['mm-only/default']:.4f} ms | cuDNN "
+              f"{lib[sb.CUDNN['highest']]:.4f} (TF32 off), "
+              f"{lib[sb.CUDNN['default']]:.4f} (on)", flush=True)
+        if run["TR"] == 8 and abs(full / prod - 1) > SAME_DESIGN_GAP:
+            fail(f"full/highest at TR 8 ({full:.4f} ms) is not production "
+                 f"stencil2d ({prod:.4f} ms) at x {run['x']}: the breakdown "
+                 "does not measure the design it takes apart")
+        for name, mode, _ in sb.KERNEL_ROWS:
+            if mode != "fill" and t[name] > t[name + " [v1]"]:
+                slower.append(f"{name} {t[name]:.4f} ms > [v1] "
+                              f"{t[name + ' [v1]']:.4f} ms at x {run['x']} "
+                              f"TR {run['TR']}")
+    if slower:
+        fail("the redesigned breakdown is slower than its first design: "
+             + "; ".join(slower))
 
-    # the entry: full/highest at the fine K shape, tile rows 8
+    # the entry: full/highest (and full/default) at the fine K shape, tile
+    # rows 8
     shape = BREAKDOWN_SHAPES[0]
     x, W = inputs[shape]
-    row = next(r for r in runs[0]["rows"] if r["name"] == "full/highest")
+    rows = {r["name"]: r for r in runs[0]["rows"]}
+    row, row_tf32 = rows["full/highest"], rows["full/default"]
     lib_fn, _ = library_call(tnf, x, W)
     head = {"kernel_ms": row["eager_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "plain_ms": event_ms(torch, lambda: sb.breakdown_plain(
                 "full", "highest", x, W), 20),
             "library_ms": event_ms(torch, lib_fn, 20)}
-    out["stencil_breakdown"] = {"checks": checks, "runs": runs,
+    with sb.cudnn_tf32(True):
+        library_tf32_ms = event_ms(torch, lib_fn, 20)
+    out["stencil_breakdown"] = {"checks": checks, "bitwise": bitwise,
+                                "runs": runs, "library": [
+                                    {"x": list(s), "rows": r}
+                                    for s, r in library.items()],
                                 "split": split, "launches": launches,
                                 "entry": head, "sass": sass}
     return kernel_entry(
         "stencil_breakdown", "scripts/stencil_breakdown_tpu.py:55",
         launches, head, max(c["max_abs_err"] for c in checks),
         main_path_launches=0, graph_ms=row["graph_ms"],
-        at=f"x {shape} float32, full/highest, tile rows 8; ms is 64 "
-           "eager launches, graph_ms the same chain as one CUDA graph; "
-           "launches counts the eager launches, not the graph replays")
+        default_ms=row_tf32["eager_ms"],
+        default_graph_ms=row_tf32["graph_ms"],
+        default_bound_ms=row_tf32["bound_ms"],
+        default_library_ms=library_tf32_ms,
+        default_prepare_ms=row_tf32["prepare_ms"],
+        at=f"x {shape} float32, full/highest (default_*: full/default, "
+           "TF32 wgmma; its library call cuDNN with TF32 on), tile rows 8; "
+           "ms is 64 eager launches, graph_ms the same chain as one CUDA "
+           "graph; launches counts the eager launches, not the graph "
+           "replays")
 
 
 def main():

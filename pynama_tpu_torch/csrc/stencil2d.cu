@@ -58,8 +58,8 @@
 //
 // The first design, the FULL / IEEE / TH = 8 instance of the halo-tile
 // kernel of csrc/stencil2d_tile.cuh, stays as stencil2d_v1_f32/f64: a
-// yardstick that no solver path calls, and the design that
-// csrc/stencil_breakdown.cu takes apart.
+// yardstick that no solver path calls. csrc/stencil_breakdown.cu takes
+// this file's design apart, from its own copy of the tile below.
 
 #include <cuda_runtime.h>
 

@@ -1,7 +1,8 @@
-// The tiled 2D stencil kernel for Hopper (sm_90a), shared by
-// csrc/stencil2d.cu, which launches the production instance (MODE FULL,
-// IEEE FMA, TH = 8), and csrc/stencil_breakdown.cu, which launches the
-// other instances to take the production design apart.
+// The first design of the tiled 2D stencil kernel for Hopper (sm_90a), a
+// yardstick: csrc/stencil2d.cu launches its MODE FULL, IEEE FMA, TH = 8
+// instance as stencil2d_v1, and csrc/stencil_breakdown.cu its instances
+// as the breakdown's [v1] rows. Production runs stencil2d.cu's implicit
+// GEMM; the comments below speak of the time this kernel was production.
 //
 //   y[b1, b2, co] = sum_{q1, q2 < F} sum_ci x[b1 + q1 - Q, b2 + q2 - Q, ci]
 //                                            * W[q1, q2, ci, co]

@@ -439,8 +439,8 @@ class CudaStencil(CudaLibrary):
 
 class CudaStencil2D(CudaStencil):
     """csrc/stencil2d.cu, planned by plan2d; its first design (``v1``) is
-    the halo-tile kernel of csrc/stencil2d_tile.cuh, the design that
-    csrc/stencil_breakdown.cu takes apart."""
+    the halo-tile kernel of csrc/stencil2d_tile.cuh.
+    csrc/stencil_breakdown.cu takes this kernel's design apart."""
 
     def __init__(self):
         super().__init__(2)
@@ -475,10 +475,15 @@ def build_kernels(kernels=None):
 KERNEL = CudaStencil2D()
 KERNEL3D = CudaStencil3D()
 KERNELS = {2: KERNEL, 3: KERNEL3D}
-# x, W, y, B1, B2, C, TR, mode, prec, stream
+_V, _I = ctypes.c_void_p, ctypes.c_int
 BREAKDOWN = CudaLibrary("stencil_breakdown", {
-    "stencil_breakdown_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]})
+    # x, W (or W^T), y, ws, B1, B2, C, instance, split, vec, mode, stream
+    "stencil_breakdown_f32": [_V] * 4 + [_I] * 7 + [_V],
+    # W, W^T, C, instance, stream
+    "stencil_breakdown_prepare_w": [_V] * 2 + [_I] * 2 + [_V],
+    "stencil_breakdown_instance": [_I, ctypes.POINTER(_I)],
+    # the first design: x, W, y, B1, B2, C, TR, mode, prec, stream
+    "stencil_breakdown_v1_f32": [_V] * 3 + [_I] * 6 + [_V]})
 LIBRARIES = (KERNEL, KERNEL3D, BREAKDOWN)
 
 

@@ -8,8 +8,10 @@ against the plain version, its scan attempt against its stepper, and
 its history on the card; the immersed-boundary path through the kernels
 against the plain version, and stencil2d's float64 instance at its
 non-square and 8-channel shapes; a single-mask resume bit for bit, and
-kle-solver: gmres against the CPU; the breakdown kernel in every mode
-against its plain version, and under a CUDA graph; a Gmsh cavity
+kle-solver: gmres against the CPU; the breakdown kernel of both designs
+in every mode against its plain version and under a CUDA graph, its
+full/highest tile-rows-8 launch against stencil2d bit for bit, its
+instance table and bitwise TF32 repeats; a Gmsh cavity
 (ElementOps, Schwarz) repeated bit for bit and against the CPU, and the
 scatter of the multigrid's grid transfers repeated bit for bit; a
 padded-hierarchy cavity through the kernels against the plain version,
@@ -23,6 +25,8 @@ run on a machine with an NVIDIA GPU and nvcc:
 (--noconftest: the suite's conftest configures JAX, which this file does
 not use.)
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -643,12 +647,14 @@ def test_gmres_kle_on_card_matches_cpu(cuda):
     assert float((ug - uc).abs().max() / uc.abs().max()) < 1e-10
 
 
+@pytest.mark.parametrize("design", sb.DESIGNS)
 @pytest.mark.parametrize("TR", sb.TILE_ROWS)
-@pytest.mark.parametrize("shape", [(97, 97, 128), (21, 13, 32), (10, 7, 70)],
+@pytest.mark.parametrize("shape", [(97, 97, 128), (21, 13, 32), (10, 7, 70),
+                                   (40, 37, 8)],
                          ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("mode,prec", [r[1:] for r in sb.KERNEL_ROWS],
-                         ids=[r[0] for r in sb.KERNEL_ROWS])
-def test_breakdown_matches_plain(cuda, mode, prec, shape, TR):
+@pytest.mark.parametrize("mode,prec", list(itertools.product(
+    sb.MODES, sb.PRECISIONS)), ids=lambda v: str(v))
+def test_breakdown_matches_plain(cuda, mode, prec, shape, TR, design):
     rng = np.random.default_rng(2)
     C = shape[-1]
     x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
@@ -656,7 +662,7 @@ def test_breakdown_matches_plain(cuda, mode, prec, shape, TR):
     W = torch.as_tensor(rng.normal(size=(3, 3, C, C)), dtype=torch.float32,
                         device=cuda)
     before = stencil.BREAKDOWN.launches
-    y = sb.make_breakdown(mode, prec, TR)(x, W)
+    y = sb.make_breakdown(mode, prec, TR, design)(x, W)
     torch.cuda.synchronize()
     assert stencil.BREAKDOWN.launches == before + 1
     ref = sb.breakdown_plain(mode, prec, x.double(), W.double())
@@ -664,9 +670,11 @@ def test_breakdown_matches_plain(cuda, mode, prec, shape, TR):
     assert err <= BREAKDOWN_TOL["fill" if mode == "fill" else prec], err
 
 
+@pytest.mark.parametrize("design", sb.DESIGNS)
 @pytest.mark.parametrize("mode,prec", [("full", "highest"),
-                                       ("mm", "default")])
-def test_breakdown_graph_replays_eager_chain(cuda, mode, prec):
+                                       ("mm", "default"),
+                                       ("full", "default")])
+def test_breakdown_graph_replays_eager_chain(cuda, mode, prec, design):
     rng = np.random.default_rng(4)
     C = 128
     x = torch.as_tensor(rng.normal(size=(25, 25, C)), dtype=torch.float32,
@@ -674,7 +682,7 @@ def test_breakdown_graph_replays_eager_chain(cuda, mode, prec):
     # entries of variance 1 / (9 C): 64 applies neither overflow nor vanish
     W = torch.as_tensor(rng.normal(size=(3, 3, C, C)) / (3 * C**0.5),
                         dtype=torch.float32, device=cuda)
-    apply = sb.make_breakdown(mode, prec, 8)
+    apply = sb.make_breakdown(mode, prec, 8, design)
 
     def chain(v):
         for _ in range(64):
@@ -693,6 +701,49 @@ def test_breakdown_graph_replays_eager_chain(cuda, mode, prec):
     assert stencil.BREAKDOWN.launches == before
     assert torch.isfinite(eager).all() and float(eager.abs().max()) > 0
     assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("shape", [(97, 97, 128), (25, 25, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_breakdown_full_highest_tr8_is_conv_blocked(cuda, shape):
+    rng = np.random.default_rng(5)
+    C = shape[-1]
+    x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(rng.normal(size=(3, 3, C, C)), dtype=torch.float32,
+                        device=cuda)
+    y = sb.make_breakdown("full", "highest", 8)(x, W)
+    assert torch.equal(y, stencil.conv_blocked(x, W))
+
+
+def test_breakdown_instance_table_matches_python(cuda):
+    table = sb.instances()
+    assert {i: tile for i, (tile, _, _) in table.items()} == sb.INSTANCES
+    for i, (tile, threads, smem) in table.items():
+        if tile[0] == "highest":
+            # a thread sums TM x TN
+            assert threads == tile[2] * tile[3] // (tile[4] * tile[5])
+        else:
+            assert threads == 128 * tile[2] // tile[4]  # warpgroups
+        assert 0 < smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("TR", sb.TILE_ROWS)
+@pytest.mark.parametrize("shape", [(97, 97, 128), (25, 25, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("mode", ("full", "mm"))
+def test_breakdown_tf32_repeats_are_bitwise_equal(cuda, mode, shape, TR):
+    rng = np.random.default_rng(6)
+    C = shape[-1]
+    x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(rng.normal(size=(3, 3, C, C)), dtype=torch.float32,
+                        device=cuda)
+    # every shape and TR splits K: the split sums repeat too
+    assert sb.breakdown_plan("default", TR, shape).split > 1
+    ys = [sb.make_breakdown(mode, "default", TR)(x, W) for _ in range(4)]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
 
 
 # ----------------------------------------------------------------------

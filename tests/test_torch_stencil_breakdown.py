@@ -188,3 +188,118 @@ def test_build_tag_covers_the_headers(tmp_path):
     before = lib._so()
     (tmp_path / "tile.cuh").write_text("// two\n")
     assert lib._so() != before and lib._so().name.startswith("libk-")
+
+
+# ----------------------------------------------------------------------
+# the redesigned breakdown: its tile table, names and build
+
+@pytest.mark.parametrize("shape", [(97, 97, 128), (25, 25, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tr8_highest_is_plan2d(shape):
+    C = shape[-1]
+    plan = sb.breakdown_plan("highest", 8, shape)
+    ref = sb.stencil.plan2d(shape, (3, 3, C, C), torch.float32)
+    assert (plan.instance, plan.split, plan.vec) == (ref.instance, ref.split,
+                                                     ref.vec)
+    assert plan == ref
+    assert sb.INSTANCES[plan.instance][2:] == \
+        sb.stencil.INSTANCES2D[ref.instance][1:]
+
+
+@pytest.mark.parametrize("shape", [(97, 97, 128), (25, 25, 128), (40, 37, 8),
+                                   (10, 7, 70)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tr_table_tiles(shape):
+    C = shape[-1]
+    p8 = sb.breakdown_plan("highest", 8, shape)
+    p16 = sb.breakdown_plan("highest", 16, shape)
+    # TR 16: the same tile with twice the positions
+    assert p16.instance == p8.instance + 2
+    assert (p16.bm, p16.bn, p16.bk) == (2 * p8.bm, p8.bn, p8.bk)
+    assert sb.INSTANCES[p16.instance][4:] == sb.INSTANCES[p8.instance][4:]
+    assert p16.split == sb.stencil.split_k(p16.m_tiles * p16.n_tiles,
+                                           p16.chunks,
+                                           sb.FILL16[p16.instance])
+    for TR, ieee, inst in ((8, p8, 4), (16, p16, 5)):
+        tf32 = sb.breakdown_plan("default", TR, shape)
+        prec, tr, bm, bn, wm, n, bk, _ = sb.INSTANCES[inst]
+        assert (tf32.instance, prec, tr) == (inst, "default", TR)
+        # TR 8: two m64 tiles, one a warpgroup; TR 16 twice the positions
+        assert bm == TR * 16 and bm == 2 * wm and bn == n == 64 and bk == 32
+        assert tf32.chunks == 9 * -(-C // 32)
+        assert tf32.split == min(ieee.split, tf32.chunks)
+        assert tf32.vec == (C % 4 == 0)
+    with pytest.raises(ValueError):
+        sb.breakdown_plan("bf16", 8, shape)
+    with pytest.raises(ValueError):
+        sb.breakdown_plan("highest", 12, shape)
+
+
+def test_make_breakdown_rejects_an_unknown_design():
+    for design in ("igemm2", None, "V1"):
+        with pytest.raises(ValueError, match="design"):
+            sb.make_breakdown("full", "highest", 8, design)
+    for design in sb.DESIGNS:
+        assert callable(sb.make_breakdown("mm", "default", 16, design))
+
+
+@pytest.mark.parametrize("design", sb.DESIGNS)
+def test_both_designs_have_no_cpu_mode(design):
+    x = torch.zeros(9, 9, 8)
+    W = torch.zeros(3, 3, 8, 8)
+    before = sb.stencil.BREAKDOWN.launches
+    for mode, prec in (("full", "default"), ("fill", "highest")):
+        with pytest.raises(ValueError, match="CUDA"):
+            sb.make_breakdown(mode, prec, 16, design)(x, W)
+    with pytest.raises(ValueError, match="CUDA"):
+        sb.prepare_weights(W, 4)
+    assert sb.stencil.BREAKDOWN.launches == before
+
+
+BREAKDOWN_SASS = """
+\t\tFunction : _ZN14breakdown_gemm15breakdown_igemmILi128ELi64ELi8ELi8ELi16ELi4ELb1ELi0EEEvPKfS2_Pfiiiii
+        /*0000*/                   LDS.128 R4, [R2+0x10] ;
+        /*0010*/                   LDS R4, [R2] ;
+        /*0020*/                   FFMA R3, R4, R5, R3 ;
+        /*0030*/              @!P0 LDGSTS.E.BYPASS.128 [R1], desc[UR4][R2.64] ;
+\t\tFunction : _ZN14breakdown_gemm15breakdown_wgmmaILi256ELi64ELi128ELi32ELi4ELb0ELi2EEEvPKfS2_Pfiiiii
+        /*0000*/                   HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;
+        /*0010*/                   STS.128 [R1], R4 ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+\t\tFunction : _ZN14breakdown_gemm10prepare_wtEPKfPfiiii
+        /*0000*/                   STG.E [R2.64], R5 ;
+\t\tFunction : _ZN14breakdown_gemm13reduce_splitsIfEEvPKT_PS1_im
+        /*0000*/                   LDG.E R5, [R2.64] ;
+"""
+
+
+def test_instance_name_names_the_breakdown_kernels():
+    counts = sb.sass_counts(BREAKDOWN_SASS, sb.SASS_OPS_BREAKDOWN)
+    zero = dict.fromkeys(sb.SASS_OPS_BREAKDOWN, 0)
+    assert counts == {
+        "breakdown highest BM128 BN64 TM8 TN8 BK16 S4 vec full":
+            {**zero, "LDS": 2, "LDS.128": 1, "FFMA": 1, "LDGSTS": 1},
+        "breakdown default BM256 BN64 WM128 BK32 S4 scalar mm":
+            {**zero, "HGMMA": 1, "STS": 1, "BAR": 1},
+        "breakdown prepare_wt float32": zero,
+        "reduce_splits float32": zero}
+
+
+def test_build_tag_covers_every_included_header(tmp_path):
+    import re
+    import shutil
+
+    csrc = Path(sb.stencil.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "stencil_breakdown.cu").read_text()
+    headers = re.findall(r'#include "([^"]+)"', src)
+    assert "stencil2d_tile.cuh" in headers
+    for h in headers:
+        shutil.copy(csrc / h, tmp_path / h)
+    lib = sb.stencil.CudaLibrary("stencil_breakdown", {})
+    lib.source = tmp_path / "stencil_breakdown.cu"
+    lib.source.write_text(src)
+    tags = {lib._so()}
+    for h in headers:
+        (tmp_path / h).write_text((csrc / h).read_text() + "// edited\n")
+        tags.add(lib._so())
+    assert len(tags) == len(headers) + 1
