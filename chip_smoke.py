@@ -181,9 +181,10 @@ Phases, each timed; any failure exits non-zero:
        lists side by side; 14a's initial RHS (its first two solves)
        again, bit for bit with the same CG iterations, then once more
        under the sync debug mode and the profiler: host syncs, kernels
-       and device time per CG iteration; and 14a's initial RHS at its own
-       size on a problem set up with device="cpu": RHS and velocities
-       within 1e-8 of the card's, CG iterations side by side;
+       and device time per CG iteration; and the initial RHS of 14a's
+       cavity at 64x64 (at 14a's 128x128 until phase 17 was added, cut to
+       make room for it) on the card and on a problem set up with device="cpu":
+       RHS and velocities within 1e-8, CG iterations side by side;
 15. immersed bodies on Gmsh domains (float64; the Gmsh path of phase 14
    with UnstructuredIBMCoupling for a static body and LatticeIBMCoupling
    for a moving one, plain torch: every launch count, set to 0 just
@@ -234,7 +235,26 @@ Phases, each timed; any failure exits non-zero:
        just before and read just after: the true float64 relative
        residual, formed anew, within 2 x the rtol; then stencil3d
        against its plain version at every shape 16b logged, with the
-       bound and cuDNN's time.
+       bound and cuDNN's time;
+17. distributed runs (pynama_tpu_torch/parallel/: ShardedNSProblem, the
+   distributed V-cycle, run_case's -sharded N) through torch.distributed
+   with NCCL, rank r on cuda:r:
+   17a phase 3's configuration (cavity_config(384), float32, the dual
+       mask, the distributed multigrid) through ShardedNSProblem(p, 1) in
+       an NCCL group of one rank, run(max_steps=3), the launch counts
+       reset just before and read just after: the final vorticity within
+       SHARDED_LIMIT (1e-4) of phase 3's at the same step count (the
+       owned-weight dots sum in another order, so CG may stop an
+       iteration apart); ms per step (steps 2-3) beside phase 3's,
+       CG iterations per solve, all-reduces, all-gathers, halo exchanges
+       and stencil2d launches per CG iteration, and that every tensor of
+       the ShardedNSProblem is on cuda:0;
+   17b run_case.main(["-case", "cavity", "-sharded", "1", "-nelem", "32",
+       "32", "-max-steps", "2", ...]): one spawned NCCL rank, owner.vtk
+       and the metrics file; then -sharded <visible cards + 1> must exit
+       with the reference's message;
+   17c 17a's run on 2 and on 4 ranks, each only where that many cards
+       are visible (one card: neither runs, and the line says so).
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -1746,6 +1766,7 @@ GMSH_CAVITY_N = 128        # 14a: quads per side, jittered by 0.15 / N
 GMSH_TG_N = 16             # 14b: hexes per side, jittered by 0.03 / N
 GMSH_CHANNEL = (12, 12, 30)  # 14c: channel3d's box, cut from 32x32x80
 GMSH_CPU_LIMIT = 1e-8      # 14d: card vs CPU vorticity / RHS, relative
+GMSH_CPU_CHECK_N = 64      # 14d: the CPU initial RHS's quads per side
 # 14b: the velocity's relative error against the exact field after 3
 # steps: the port's CPU run of the same config gave GMSH_TG_CPU_ERR
 # (gmsh_tg_cpu_error(), a few minutes; its last digits follow the host's
@@ -2064,8 +2085,8 @@ def gmsh_cpu_leg(torch, tmp, out, p14, first):
     """14d: small Gmsh runs on the card and on the CPU; 14a's initial RHS
     repeated on the card (bit for bit, the same CG iterations), then once
     more under the sync debug mode and the profiler: host syncs, kernel
-    launches and device time per CG iteration; then 14a's initial RHS at
-    its own size on the CPU against the card's."""
+    launches and device time per CG iteration; then the initial RHS at
+    GMSH_CPU_CHECK_N on the CPU against the card's."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -2151,39 +2172,50 @@ def gmsh_cpu_leg(torch, tmp, out, p14, first):
             "profiled_repeat_bitwise_equal"]:
         fail("14d: a repeat of 14a's first solves is not bitwise equal or "
              "takes other CG iterations")
-    gmsh_full_size_cpu(torch, tmp, first, res)
+    gmsh_sized_cpu(torch, tmp, res)
 
 
-def gmsh_full_size_cpu(torch, tmp, first, res):
-    """14a's initial RHS (its first two KLE solves, one-level Schwarz at
-    132,098 dofs) on a problem set up from the same file with
-    device="cpu": the RHS and both velocities within GMSH_CPU_LIMIT of
-    the card's."""
+def gmsh_sized_cpu(torch, tmp, res):
+    """The initial RHS (its first two KLE solves, one-level Schwarz) of
+    14a's cavity at GMSH_CPU_CHECK_N x GMSH_CPU_CHECK_N quads, on the card
+    and on a problem set up from the same file with device="cpu": the
+    RHS and both velocities within GMSH_CPU_LIMIT. At 14a's own size until
+    phase 17 was added; cut to make room for it."""
     from pynama_tpu_torch.cases.cavity import CavityProblem
 
     def tup(a):
         return a if isinstance(a, tuple) else (a,)
 
-    t0 = time.perf_counter()
-    cfg = gmsh_cavity_config(os.path.join(tmp, "cavity.msh"), GMSH_CAVITY_N)
-    p = CavityProblem(cfg, device="cpu").setup()
-    t1 = time.perf_counter()
-    f, aux = p.transport_rhs(first["t"], p.initial_vorticity(), p.zero_vel())
-    t2 = time.perf_counter()
-    pairs = [(first["f"], f)] + list(zip(tup(first["aux"]), tup(aux)))
-    rels = [rel_diff(torch, a.cpu(), b) for a, b in pairs]
-    card_iters = first["iters"][:len(p.cg_iters)]
-    res.update(full_size_cpu_rel_diff=rels, full_size_cpu_cg_iters=p.cg_iters,
-               full_size_card_cg_iters=card_iters,
-               full_size_cpu_setup_s=t1 - t0, full_size_cpu_rhs_s=t2 - t1)
-    print(f"  14a's initial RHS on the CPU ({p.mesh.n_nodes * p.dim} "
-          f"velocity dofs; setup {t1 - t0:.1f} s, RHS {t2 - t1:.1f} s): RHS "
-          f"and velocities vs the card {', '.join(f'{r:.3e}' for r in rels)}"
-          f" (limit {GMSH_CPU_LIMIT:g}); CG CPU {p.cg_iters}, card "
-          f"{card_iters}", flush=True)
+    n = GMSH_CPU_CHECK_N
+    path = os.path.join(tmp, f"cavity{n}.msh")
+    pts, quads = box_corner_mesh(n, n, distort=0.15 / n, seed=1)
+    write_msh22(path, pts, quads, 3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = CavityProblem(gmsh_cavity_config(path, n), device=dev).setup()
+        t1 = time.perf_counter()
+        f, aux = p.transport_rhs(p.t_start, p.initial_vorticity(),
+                                 p.zero_vel())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = ([f.cpu()] + [a.cpu() for a in tup(aux)], p.cg_iters,
+                     t1 - t0, time.perf_counter() - t1)
+    rels = [rel_diff(torch, a, b)
+            for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
+    res.update(sized_cpu_nelem=n, sized_cpu_rel_diff=rels,
+               sized_cpu_cg_iters=runs["cpu"][1],
+               sized_card_cg_iters=runs["cuda"][1],
+               sized_cpu_setup_s=runs["cpu"][2], sized_cpu_rhs_s=runs["cpu"][3])
+    print(f"  the initial RHS at {n}x{n} ({p.mesh.n_nodes * p.dim} velocity "
+          f"dofs) on the CPU (setup {runs['cpu'][2]:.1f} s, RHS "
+          f"{runs['cpu'][3]:.1f} s) vs the card: RHS and velocities "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (limit "
+          f"{GMSH_CPU_LIMIT:g}); CG CPU {runs['cpu'][1]}, card "
+          f"{runs['cuda'][1]}", flush=True)
     if not max(rels) <= GMSH_CPU_LIMIT:
-        fail(f"14d: 14a's initial RHS on the CPU is {max(rels):.3e} off "
-             "the card's")
+        fail(f"14d: the {n}x{n} initial RHS on the CPU is {max(rels):.3e} "
+             "off the card's")
 
 
 def phase_gmsh_legs(torch, stencil, phase, out):
@@ -2200,7 +2232,7 @@ def phase_gmsh_legs(torch, stencil, phase, out):
               + "x".join(map(str, GMSH_CHANNEL)) + " hexes, 1 step",
               lambda: gmsh_channel_leg(torch, stencil, tmp, out))
         phase("gmsh_card_vs_cpu", "[14d] Gmsh runs on the card vs the CPU; "
-              "14a's first solves repeated, and on the CPU",
+              "14a's first solves repeated; a 64x64 initial RHS on both",
               lambda: gmsh_cpu_leg(torch, tmp, out, p14, first))
 
 
@@ -2769,6 +2801,258 @@ def phase_padded_legs(torch, stencil, phase, out):
     return sl, rows2, res3, rows3
 
 
+# ----------------------------------------------------------------------
+# phase 17: distributed runs (parallel/, run_case -sharded) through NCCL
+# ----------------------------------------------------------------------
+SHARDED_STEPS = 3
+# 17a/17c against phase 3: the owned-weight dots sum in another order,
+# so CG may stop an iteration apart; the ws legs' bound at KLE rtol 1e-5
+SHARDED_LIMIT = 1e-4
+# 17b: the reference's {case}-sharded{N}-metrics.yaml keys
+SHARDED_METRICS = {"steps", "final_time", "elapsed_s", "devices", "n_dofs",
+                   "platform", "distributed_multigrid", "s_per_step_steady",
+                   "vort_norm"}
+
+
+def sharded_tensors(torch, sp):
+    """Every tensor a ShardedNSProblem holds: its own, its local ops'
+    (elemental matrices and built kernels) and its distributed
+    multigrid's (per-level tensors, transfer and patch kernels, coarse
+    inverse)."""
+    found = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            found.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk([v for k, v in vars(sp).items() if k != "p"])
+    for op in (sp.K_op, sp.Rw_op, sp.Curl_op, sp.SrT_op, sp.Div_op):
+        walk([op.A, op._kernels()])
+    return found
+
+
+def sharded_run(torch, stencil, sp, steps):
+    """sp.run(max_steps=steps) with the launch and collective counts set
+    to 0 just before and read just after: per-step marks, the record."""
+    p, k2 = sp.p, stencil.KERNEL
+    marks = []
+
+    def cb(n, t, dt, w, vel):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), k2.launches, len(p.cg_iters),
+                      dict(sp.ranks.counts)))
+
+    for k in stencil.LIBRARIES:
+        k.reset_counts()
+    sp.ranks.counts.clear()
+    p.cg_iters.clear()
+    torch.cuda.synchronize()
+    w, t, n = sp.run(max_steps=steps, callback=cb)
+    torch.cuda.synchronize()
+    counts, iters = dict(sp.ranks.counts), list(p.cg_iters)
+    (ta, la, ia, ca), (tb, lb, ib, cb_) = marks[0], marks[-1]
+    its = sum(iters[ia:ib])  # steps 2..steps
+    res = {"steps": n, "t": t, "stencil_launches": k2.launches,
+           "logged_shapes": dict(k2.shapes),
+           "step_ms": [1e3 * (b[0] - a[0]) for a, b in zip(marks,
+                                                           marks[1:])],
+           "cg_iters": iters, "kle_solves": len(iters),
+           "cg_iters_per_solve": sum(iters) / len(iters),
+           "collectives": counts,
+           "per_cg_iteration_steps_2on": {
+               k: (cb_.get(k, 0) - ca.get(k, 0)) / max(its, 1)
+               for k in ("all_reduce", "all_gather", "halo")},
+           "stencil_launches_per_cg_iteration_steps_2on":
+               (lb - la) / max(its, 1)}
+    res["ms_per_step"] = sum(res["step_ms"]) / len(res["step_ms"])
+    return w, res
+
+
+def sharded_rank(rank, nelem, steps):
+    """17c, on rank r (cuda:r) of an N-rank NCCL group: the cavity at
+    nelem x nelem through ShardedNSProblem(p, N).run(); rank 0 also
+    returns the global vorticity."""
+    import torch
+    import torch.distributed as dist
+
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.ops import stencil
+    from pynama_tpu_torch.parallel.sharded_problem import ShardedNSProblem
+
+    p = CavityProblem(cavity_config(nelem), dtype=torch.float32,
+                      device=torch.device("cuda", rank)).setup()
+    sp = ShardedNSProblem(p, dist.get_world_size())
+    w, res = sharded_run(torch, stencil, sp, steps)
+    vort = sp.unshard(w, 1)
+    res.pop("logged_shapes")
+    return dict(res, vort=vort if rank == 0 else None)
+
+
+def sharded_single(torch, stencil, base_vort, base, out):
+    """17a (see the module's docstring); returns its record."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.parallel import launch
+    from pynama_tpu_torch.parallel.sharded_problem import ShardedNSProblem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.init_group("nccl", "file://" + os.path.join(tmp, "rdv"), 1, 0)
+        try:
+            t0 = time.perf_counter()
+            p = CavityProblem(cavity_config(384), dtype=torch.float32).setup()
+            sp = ShardedNSProblem(p, 1)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            tensors = sharded_tensors(torch, sp)
+            here = {str(x.device) for x in tensors}
+            w, res = sharded_run(torch, stencil, sp, SHARDED_STEPS)
+            vort = sp.unshard(w, 1)
+        finally:
+            dist.destroy_process_group()
+    ref = base_vort.reshape(-1).cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(vort - ref) / np.linalg.norm(ref))
+    res.update(setup_s=setup_s, vort_rel_diff_vs_phase3=rel,
+               tensors=len(tensors), tensor_devices=sorted(here),
+               dist_mg=sp._dmg is not None,
+               device_count=torch.cuda.device_count(),
+               phase3_ms_per_step=base["ms_per_step"],
+               phase3_cg_iters_per_solve=base["cg_iters_per_solve"])
+    out["sharded_1"] = {k: v for k, v in res.items() if k != "logged_shapes"}
+    per = res["per_cg_iteration_steps_2on"]
+    print(f"  1 NCCL rank, {torch.cuda.device_count()} card(s) visible; "
+          f"setup {setup_s:.2f} s; {res['ms_per_step']:.1f} ms/step "
+          f"(steps 2-{SHARDED_STEPS}: {res['step_ms']}) beside phase 3's "
+          f"{base['ms_per_step']:.1f} ({base['step_ms']}); "
+          f"{res['cg_iters_per_solve']:.2f} CG iterations per solve "
+          f"(phase 3: {base['cg_iters_per_solve']:.2f})", flush=True)
+    print(f"  per CG iteration (steps 2-{SHARDED_STEPS}): "
+          f"{per['all_reduce']:.2f} all-reduces, {per['all_gather']:.2f} "
+          f"all-gathers, {per['halo']:.2f} halo exchanges, "
+          f"{res['stencil_launches_per_cg_iteration_steps_2on']:.1f} "
+          f"stencil2d launches; {len(tensors)} tensors on {sorted(here)}; "
+          f"vorticity vs phase 3 {rel:.3e} (limit {SHARDED_LIMIT:g})",
+          flush=True)
+    if res["steps"] != SHARDED_STEPS or not rel <= SHARDED_LIMIT:
+        fail(f"17a: {res['steps']} steps, vorticity {rel:.3e} off phase 3")
+    if here != {"cuda:0"} or not res["dist_mg"]:
+        fail(f"17a: tensors on {here}, distributed multigrid "
+             f"{res['dist_mg']}")
+    if res["stencil_launches"] <= 0 or not res["collectives"].get(
+            "all_reduce"):
+        fail("17a: no stencil2d launch or no all-reduce on the main path")
+    return res
+
+
+def sharded_cli(torch, out):
+    """17b: run_case -sharded 1 on the card (one spawned NCCL rank), then
+    the refusal of -sharded <visible cards + 1>."""
+    import yaml
+
+    from pynama_tpu_torch import run_case
+
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "run")
+        base = ["-case", "cavity", "-nelem", "32", "32", "-max-steps", "2",
+                "-log", "WARNING", "-opt", f"save-dir={save}"]
+        t0 = time.perf_counter()
+        m = run_case.main(base + ["-sharded", "1"])
+        secs = time.perf_counter() - t0
+        with open(os.path.join(save, "cavity-sharded1-metrics.yaml")) as f:
+            saved = yaml.safe_load(f)
+        with open(os.path.join(save, "owner.vtk")) as f:
+            lines = f.read().splitlines()
+        owner = [float(v) for v in
+                 lines[lines.index("LOOKUP_TABLE default") + 1:]]
+        refused = None
+        try:
+            run_case.main(base + ["-sharded", str(n_cards + 1)])
+        except SystemExit as e:
+            refused = str(e.code)
+    want = f"-sharded {n_cards + 1}: only {n_cards} devices visible"
+    res = {"metrics": m, "seconds": secs, "owner_points": len(owner),
+           "refusal": refused}
+    out["sharded_cli"] = res
+    print(f"  -sharded 1: {secs:.1f} s, metrics {m}; owner.vtk "
+          f"{len(owner)} points; -sharded {n_cards + 1}: {refused!r}",
+          flush=True)
+    if set(m) != SHARDED_METRICS or saved != m or m["steps"] != 2 \
+            or m["platform"] != "cuda" or m["devices"] != 1 \
+            or not m["distributed_multigrid"] \
+            or not math.isfinite(m["vort_norm"]):
+        fail(f"17b: -sharded 1 metrics {m}")
+    if len(owner) != 65 * 65 or any(v != 0.0 for v in owner):
+        fail("17b: owner.vtk does not hold rank 0 at every node")
+    if refused is None or not refused.startswith(want):
+        fail(f"17b: -sharded {n_cards + 1} was not refused: {refused!r}")
+    return res
+
+
+def sharded_multi(torch, base_vort, out):
+    """17c: 17a's run on 2 and 4 NCCL ranks where that many cards are
+    visible; their stencil2d launches by N."""
+    import numpy as np
+
+    from pynama_tpu_torch.parallel import launch
+
+    n_cards = torch.cuda.device_count()
+    ref = base_vort.reshape(-1).cpu().numpy().astype(np.float64)
+    legs, launches = {}, {}
+    for n in (2, 4):
+        if n_cards < n:
+            print(f"  N = {n}: {n_cards} card(s) visible, not run",
+                  flush=True)
+            legs[n] = None
+            continue
+        res = launch.spawn(sharded_rank, n, args=(384, SHARDED_STEPS),
+                           backend="nccl", deadline=600)
+        vort = res[0].pop("vort")
+        rel = float(np.linalg.norm(vort - ref) / np.linalg.norm(ref))
+        launches[f"17c N={n}"] = sum(r["stencil_launches"] for r in res)
+        legs[n] = dict(res[0], vort_rel_diff_vs_phase3=rel)
+        print(f"  N = {n}: {res[0]['ms_per_step']:.1f} ms/step, "
+              f"{res[0]['cg_iters_per_solve']:.2f} CG iterations per solve, "
+              f"vorticity vs phase 3 {rel:.3e}", flush=True)
+        if res[0]["steps"] != SHARDED_STEPS or not rel <= SHARDED_LIMIT:
+            fail(f"17c N={n}: vorticity {rel:.3e} off phase 3")
+    out["sharded_multi"] = {str(k): v for k, v in legs.items()}
+    return launches
+
+
+def phase_sharded_legs(torch, stencil, phase, base_vort, checked, out):
+    """Phase 17 (see the module's docstring). Returns stencil2d's
+    launches by leg and the rows of 17a's new shapes."""
+    from collections import Counter
+
+    res = phase("sharded_1", "[17a] distributed path, 1 NCCL rank: 384x384 "
+                f"cavity, float32, {SHARDED_STEPS} steps",
+                lambda: sharded_single(torch, stencil, base_vort,
+                                       out["cavity"], out))
+    phase("sharded_cli", "[17b] run_case -sharded 1 on the card, and the "
+          "refusal of more ranks than cards",
+          lambda: sharded_cli(torch, out))
+    launches = phase("sharded_multi", "[17c] 17a on 2 and 4 NCCL ranks, "
+                     "where that many cards are visible",
+                     lambda: sharded_multi(torch, base_vort, out))
+    launches["17a"] = res["stencil_launches"]
+    new = Counter({s: c for s, c in res["logged_shapes"].items()
+                   if s not in checked})
+    rows = phase("sharded_kernels", "[17a] stencil2d vs plain version at "
+                 "the distributed path's new shapes",
+                 lambda: phase_logged_kernels(torch, stencil, stencil.KERNEL,
+                                              new, sum(new.values()),
+                                              "sharded_kernels", out))
+    return launches, rows
+
+
 def kernel_entry(name, replaces, launches, head, max_abs_err, **extra):
     """One entry of the "kernels" line; ``head`` holds the kernel's,
     the plain version's and the library call's times and the bound at the
@@ -3139,12 +3423,16 @@ def main():
     sl12, rows12 = phase_ibm_legs(torch, stencil, phase, out)
     checked = {(tuple(r["x"]), tuple(r["W"]), r["dtype"]) for r in
                rows2 + rows12 + out["parity_kernels"]["shapes"]}
-    cli2, rows13 = phase_cli_legs(torch, stencil, phase, held.pop("cavity"),
+    cli2, rows13 = phase_cli_legs(torch, stencil, phase, held["cavity"],
                                   checked, out)
     phase_gmsh_legs(torch, stencil, phase, out)
     phase_ibm_gmsh_legs(torch, stencil, phase, out)
     sl16a, rows16a, res16b, rows16b = phase_padded_legs(torch, stencil,
                                                         phase, out)
+    checked |= {(tuple(r["x"]), tuple(r["W"]), r["dtype"])
+                for r in rows13 + rows16a}
+    sharded2, rows17 = phase_sharded_legs(torch, stencil, phase,
+                                          held.pop("cavity"), checked, out)
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print("GiB allocated after each phase: " + json.dumps(mem_after),
@@ -3158,7 +3446,8 @@ def main():
         main_path_entry(k2, rows2, sl2["stencil_launches"]
                         + sl10["stencil_launches"] + sum(ws2.values())
                         + sum(ibm2.values()) + sum(cli2.values())
-                        + sl16a["stencil_launches"],
+                        + sl16a["stencil_launches"]
+                        + sum(sharded2.values()),
                         "pynama_tpu/ops/pallas_stencil.py:173",
                         out["stencil2d_v1_launches"],
                         also_replaces=["pynama_tpu/ops/pallas_stencil.py:273"],
@@ -3176,7 +3465,11 @@ def main():
                         padded_leg_launches={
                             "16a": sl16a["stencil_launches"]},
                         padded_leg_max_abs_err=max(
-                            r["max_abs_err"] for r in rows16a)),
+                            r["max_abs_err"] for r in rows16a),
+                        sharded_leg_launches=sharded2,
+                        sharded_leg_max_abs_err=max(
+                            (r["max_abs_err"] for r in rows17),
+                            default=None)),
         main_path_entry(k3, rows3, sl3["stencil_launches"]
                         + sl11c["stencil_launches"]
                         + res16b["stencil_launches"],

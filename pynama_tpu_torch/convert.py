@@ -60,6 +60,23 @@ def run_state(vort, vel_pair, f1, t, dt, dtype=torch.float64, device=None):
             _t(f1, dtype, device), float(t), float(dt))
 
 
+def stacked_to_rank(x_stacked, pgrid, rank, dtype=torch.float64,
+                    device=None):
+    """Rank ``rank``'s part of the reference's device-stacked arrays
+    (leading axes ``pgrid``: ``ShardedNSProblem.shard``'s output,
+    ``build_dist_mg``'s stacked pytree), as tensors: the block at
+    ``np.unravel_index(rank, pgrid)``. Dicts, lists and tuples are
+    mapped through."""
+    if isinstance(x_stacked, dict):
+        return {k: stacked_to_rank(v, pgrid, rank, dtype, device)
+                for k, v in x_stacked.items()}
+    if isinstance(x_stacked, (list, tuple)):
+        return type(x_stacked)(stacked_to_rank(v, pgrid, rank, dtype,
+                                               device) for v in x_stacked)
+    here = np.unravel_index(rank, tuple(pgrid))
+    return _t(np.asarray(x_stacked)[here], dtype, device)
+
+
 def ibm_windows(nodes, weights, dtype=torch.float64, device=None):
     """The reference coupling's windows ``(nodes, weights)``
     (``IBMCoupling.windows``) as the port's: int64 node ids and weights

@@ -163,12 +163,18 @@ class StructuredElementOp:
         """Blocked-in/blocked-out apply (pad slots zeroed on output).
 
         corrections=False skips the phantom-cell boundary corrections —
-        valid when the caller masks out every boundary row and column.
+        valid when the caller masks out every boundary row and column; a
+        tuple applies only those of the op's corrections (the ones a
+        masked operand can make nonzero: parallel/dist_mg.py
+        masked_corrections).
         """
         W, corr = self._kernels()
+        if isinstance(corrections, tuple):
+            corr = corrections
+        elif not corrections:
+            corr = ()
         return conv.conv_stencil_apply_blocked(
-            xb, W, corr if corrections else (), self.eff_ngl,
-            self.npts_grid, self.k_out,
+            xb, W, corr, self.eff_ngl, self.npts_grid, self.k_out,
         )
 
     def diagonal(self):

@@ -29,8 +29,13 @@ config's domain and ignore ``-gmsh``; on a Gmsh config ``kle`` and
 ``chartkle`` run, and ``chart`` (which refines a box mesh) raises
 ValueError. Every ``-nelem`` runs, prime element counts too (``-nelem
 383 383``: the multigrid pads such a level to the next even count, a
-fictitious-domain jump). Only ``-sharded`` (distributed runs) is not
-ported yet: it raises NotImplementedError.
+fictitious-domain jump). ``-sharded N`` runs the production run on N
+ranks (parallel/sharded_problem.py, run_staged): N gloo processes with
+``-device cpu``, else N NCCL processes, rank r on cuda:r, which needs N
+visible cards (with fewer the command exits with an error). Rank 0 writes
+owner.vtk (each node's owning rank), ``{case}-sharded{N}-metrics.yaml``
+and the metrics as a JSON line; like the reference's, the distributed
+run ignores ``-gmsh`` and ``-resume`` and saves no checkpoints.
 """
 
 import argparse
@@ -212,6 +217,89 @@ def time_solving(args, config):
     return metrics
 
 
+def time_solving_sharded(args, config):
+    """Distributed production run over ``-sharded N`` ranks (the
+    analogue of running the reference under ``mpirun -n N``): N spawned
+    processes, gloo on the CPU and NCCL on the cards; returns rank 0's
+    metrics."""
+    from pynama_tpu_torch.parallel import launch
+
+    n_dev = int(args.sharded)
+    backend = "gloo"
+    if args.device.type == "cuda":
+        backend = "nccl"
+        count = torch.cuda.device_count()
+        if count < n_dev:
+            raise SystemExit(
+                f"-sharded {n_dev}: only {count} devices visible. For CPU "
+                f"ranks pass -device cpu")
+    return launch.spawn(_sharded_rank, n_dev, args=(args, config, backend),
+                        backend=backend, deadline=None)[0]
+
+
+def _sharded_rank(rank, args, config, backend):
+    """One rank of time_solving_sharded."""
+    from pynama_tpu_torch.io.vtk import write_point_cloud
+    from pynama_tpu_torch.parallel import launch
+    from pynama_tpu_torch.parallel.sharded_problem import ShardedNSProblem
+
+    logging.basicConfig(
+        level=(getattr(logging, args.log.upper(), logging.INFO) if rank == 0
+               else logging.WARNING),
+        format=f"%(levelname)s %(name)s [rank {rank}]: %(message)s")
+    n_dev = int(args.sharded)
+    device = launch.rank_device(backend)
+    p = make_problem(args.case, config, device=device, ngl=args.ngl,
+                     nelem=args.nelem, dtype=args.dtype).setup()
+    _apply_run_overrides(p, args)
+    sp = ShardedNSProblem(p, n_dev)
+    save_dir = config.get("save-dir", f"run-{args.case}")
+    if rank == 0:
+        logger.info("sharded run: %d ranks (%s), %d nodes (%d vel dofs), "
+                    "distributed multigrid %s", n_dev, backend,
+                    p.mesh.n_nodes, p.mesh.n_nodes * p.dim,
+                    "active" if sp._dmg is not None else "OFF (Jacobi-CG)")
+        # rank-ownership debug field (the reference's createNumProcVec)
+        os.makedirs(save_dir, exist_ok=True)
+        write_point_cloud(os.path.join(save_dir, "owner.vtk"),
+                          np.asarray(p.mesh.coords),
+                          fields={"owner": sp.slab.owner_field()})
+
+    t0 = time.perf_counter()
+    step_times = []
+    last = [t0]
+
+    def cb(step, t, dt, w, vel):
+        now = time.perf_counter()
+        step_times.append(now - last[0])
+        last[0] = now
+        logger.info("Converged: Step %4d | Time %.4e | Increment Time: "
+                    "%.2e | %.1f s", step, t, dt, step_times[-1])
+
+    w, t, n = sp.run_staged(callback=cb)
+    elapsed = time.perf_counter() - t0
+    w_global = sp.unshard(w, p.dim_w)
+    if not np.isfinite(w_global).all():
+        raise RuntimeError("non-finite vorticity")
+    logger.info("Total Time: %.3f s (%d steps to t=%.4f)", elapsed, n, t)
+    metrics = {
+        "steps": n, "final_time": t, "elapsed_s": elapsed,
+        "devices": n_dev, "n_dofs": p.mesh.n_nodes * p.dim,
+        "platform": device.type,
+        "distributed_multigrid": sp._dmg is not None,
+        "s_per_step_steady": (float(np.median(step_times[1:]))
+                              if len(step_times) > 1 else None),
+        "vort_norm": float(np.linalg.norm(w_global)),
+    }
+    if rank == 0:
+        with open(os.path.join(save_dir,
+                               f"{args.case}-sharded{n_dev}-metrics.yaml"),
+                  "w") as f:
+            yaml.safe_dump(metrics, f)
+        print(json.dumps(metrics), flush=True)
+    return metrics
+
+
 def kle_field_dump(args, config):
     """Solve the KLE from the exact vorticity at the viscous-time
     sequence t = tau^2 / (4 nu), and write the computed and exact fields
@@ -384,9 +472,8 @@ def main(argv=None):
     ap.add_argument("-max-dt", type=float, default=None, dest="max_dt",
                     help="cap the adaptive time step (config 'max-dt')")
     ap.add_argument("-sharded", type=int, default=None, metavar="N",
-                    help="a distributed run over N devices (not ported "
-                         "yet, the one option that raises "
-                         "NotImplementedError)")
+                    help="a distributed run over N ranks: gloo processes "
+                         "with -device cpu, else one card each (NCCL)")
     ap.add_argument("-opt", action="append", default=[], metavar="KEY=VALUE",
                     help="override any config entry (repeatable; dotted "
                          "keys reach nested sections, values parse as "
@@ -424,8 +511,7 @@ def main(argv=None):
     if args.test == "chartkle":
         return chart_kle_transient(args, config)
     if args.sharded:
-        raise NotImplementedError("-sharded: distributed runs are not "
-                                  "ported yet (ROADMAP.md queue 1 #10)")
+        return time_solving_sharded(args, config)
     return time_solving(args, config)
 
 

@@ -44,23 +44,29 @@ def _pad_spatial(x, pads):
     return tnf.pad(x, flat)
 
 
-def blocked_restrict_apply(x, Wr, m, e_lo, Bc, dim):
+def blocked_restrict_apply(x, Wr, m, e_lo, Bc, dim, lo_ghost=0,
+                           hi_ghost=0):
     """Stride-m block restriction on super-blocked tensors.
 
     x: (Bf..., Cf) fine blocked (already times the blocked
     1/multiplicity weights; pad slots zero). Coarse block bc accumulates
     x[m*bc + t - e_lo] @ Wr[t] over taps t in [0, T) per axis; each axis
     is grouped into (group, residue) so every tap is a plain slice.
+    lo_ghost / hi_ghost add that many coarse blocks below index 0 / past
+    Bc[0] on axis 0 (ghosts first): the distributed path's margins
+    (parallel/dist_mg.py).
     """
     T = Wr.shape[0]
+    Bc = (Bc[0] + lo_ghost + hi_ghost,) + tuple(Bc[1:])
     n_extra = -(-T // m) + 1  # groups beyond Bc needed by the taps
     pads = []
     for a in range(dim):
+        lo = e_lo + (m * lo_ghost if a == 0 else 0)
         need = m * (Bc[a] + n_extra)
-        hi = need - (x.shape[a] + e_lo)
+        hi = need - (x.shape[a] + lo)
         if hi < 0:
             raise ValueError("fine blocked tensor larger than its groups")
-        pads.append((e_lo, hi))
+        pads.append((lo, hi))
     x = _pad_spatial(x, pads)
     shape = ()
     for a in range(dim):
@@ -79,11 +85,14 @@ def blocked_restrict_apply(x, Wr, m, e_lo, Bc, dim):
     return out
 
 
-def blocked_prolong_apply(xc, Wr, m, e_lo, Bf, dim):
+def blocked_prolong_apply(xc, Wr, m, e_lo, Bf, dim, lo_ghost=0,
+                          hi_ghost=0):
     """Adjoint of blocked_restrict_apply (before multiplicity weights).
 
     xc: (Bc..., Cc) coarse blocked correction with zero pad slots.
-    Returns the (Bf..., Cf) fine blocked scatter.
+    Returns the (Bf..., Cf) fine blocked scatter; lo_ghost / hi_ghost
+    add that many fine blocks below index 0 / past Bf[0] on axis 0
+    (ghosts first).
     """
     T = Wr.shape[0]
     Bc = tuple(xc.shape[:dim])
@@ -116,7 +125,8 @@ def blocked_prolong_apply(xc, Wr, m, e_lo, Bf, dim):
     perm.append(2 * dim)
     full = parts.permute(perm).reshape(tuple(m * g for g in gshape) + (Cf,))
     off = -m * smin  # full index of fine block 0
-    sl = tuple(slice(off, off + Bf[a]) for a in range(dim)) + (slice(None),)
+    sl = (slice(off - lo_ghost, off + Bf[0] + hi_ghost),) + tuple(
+        slice(off, off + Bf[a]) for a in range(1, dim)) + (slice(None),)
     return full[sl]
 
 
@@ -261,6 +271,7 @@ class MGPreconditioner:
         self.elem = elem
         self._tk_cache = {}
         self._tks_cache = {}
+        self._lam_jacobi = None
 
         jumps = coarsening_ratios(mesh, coarsest_max_dofs, max_levels)
         meshes = [mesh]
@@ -399,16 +410,16 @@ class MGPreconditioner:
         self.coarse_inv = tens(np.linalg.inv(K_masked))
 
     # ------------------------------------------------------------------
-    def _estimate_lam_max(self):
+    def _estimate_lam_max(self, jacobi=False):
         """Per-level lambda_max(M^-1 K) by power iteration (24 normalised
         steps + 1, times 1.05) for the Chebyshev smoother, M the patch
-        smoother (or point Jacobi). Start vectors from numpy
-        default_rng(7), one per level, as in the reference (which also
-        estimates a Jacobi window for its distributed V-cycle)."""
+        smoother, or point Jacobi under ``jacobi`` or without patches.
+        Start vectors from numpy default_rng(7), one draw per level, as
+        in the reference: the Jacobi estimates replay the same draws."""
         rng = np.random.default_rng(7)
         lam_max = []
         for li, lvl in enumerate(self.levels):
-            if self.patch_W is not None:
+            if self.patch_W is not None and not jacobi:
                 pc = partial(self._patch_apply, li, lvl.mask, blocked=False)
             else:
                 dinv = 1.0 / (lvl.mask * lvl.diag + (1.0 - lvl.mask))
@@ -423,6 +434,18 @@ class MGPreconditioner:
             lam_max.append(1.05 * float(torch.linalg.norm(y)
                                         / torch.linalg.norm(x)))
         return lam_max
+
+    @property
+    def lam_max_jacobi(self):
+        """Per-level lambda_max(D^-1 K): the Chebyshev window of the
+        levels the distributed V-cycle smooths pointwise
+        (parallel/dist_mg.py). Estimated at first use, so a
+        single-device setup never pays for it."""
+        if self.patch_W is None:
+            return self.lam_max
+        if self._lam_jacobi is None:
+            self._lam_jacobi = self._estimate_lam_max(jacobi=True)
+        return self._lam_jacobi
 
     def _patch_apply(self, li, mask, r, blocked):
         """Masked vertex-star Schwarz apply: mask * sum_p R^T B R (mask*r)."""
@@ -500,12 +523,16 @@ class MGPreconditioner:
     # a stride-m block map between the two levels' super-lattices
     # (m = ratio * s_coarse / s_fine blocks)
     # ------------------------------------------------------------------
-    def _transfer_kernel(self, li):
-        """(Wr, m, e_lo) for the li -> li+1 jump, or None if not admissible."""
-        if li in self._tk_cache:
-            return self._tk_cache[li]
+    def _transfer_kernel(self, li, s_f=None, s_c=None):
+        """(Wr, m, e_lo) for the li -> li+1 jump, or None if not
+        admissible. s_f / s_c override the levels' own blocked periods
+        (a distributed slab's local super factors can differ)."""
+        key = (li, s_f, s_c)
+        if key in self._tk_cache:
+            return self._tk_cache[key]
         lvl, nxt = self.levels[li], self.levels[li + 1]
-        sf, sc = lvl.K.eff_ngl - 1, nxt.K.eff_ngl - 1
+        sf = s_f if s_f is not None else lvl.K.eff_ngl - 1
+        sc = s_c if s_c is not None else nxt.K.eff_ngl - 1
         res = None
         # a padded jump's block map would run over a grid it does not tile
         if lvl.ext_mesh is None and (lvl.ratio * sc) % sf == 0:
@@ -513,7 +540,7 @@ class MGPreconditioner:
             Wr = self._tensor_kernel(W1, self.dim, self.dim)
             res = (torch.as_tensor(Wr, dtype=self.dtype, device=self.device),
                    m, e_lo)
-        self._tk_cache[li] = res
+        self._tk_cache[key] = res
         return res
 
     def _transfer_1d(self, s_f, s_c, r):
@@ -660,19 +687,25 @@ class MGPreconditioner:
         return out * lvl.mult_b * lvl.pad_b
 
     # ------------------------------------------------------------------
-    def build(self, fine_mask, frees_boundary: Optional[bool] = None
-              ) -> Callable:
+    def build(self, fine_mask=None, frees_boundary: Optional[bool] = None,
+              start_level: int = 0) -> Callable:
         """Return M^{-1}(r) closing over the fine-level free-dof mask.
 
         fine_mask: blocked (the hot path) or grid tensor; the V-cycle runs
         in its layout. frees_boundary: does the mask leave boundary dofs
         free (the phantom corrections are needed then)? Decided here, on
-        the host, from the mask when not given.
+        the host, from the mask when not given. start_level > 0 builds
+        the tail V-cycle over levels[start_level:], with that level's own
+        Dirichlet mask when fine_mask is None (its blocked mask): the
+        agglomerated coarse solve of the distributed V-cycle
+        (parallel/dist_mg.py).
         """
         assert self.usable
-        levels = self.levels
+        levels = self.levels[start_level:]
         nlev = len(levels)
-        lam_max = self.lam_max
+        lam_max = self.lam_max[start_level:]
+        if fine_mask is None:
+            fine_mask = levels[0].mask_b
         blocked = tuple(fine_mask.shape) == tuple(levels[0].mask_b.shape)
         if frees_boundary is None:
             frees_boundary = conv.mask_frees_boundary(
@@ -697,7 +730,8 @@ class MGPreconditioner:
             theta = 0.5 * (lmax + lmin)
             delta = 0.5 * (lmax - lmin)
             if self.patch_W is not None:
-                pc = partial(self._patch_apply, li, mask, blocked=blocked)
+                pc = partial(self._patch_apply, start_level + li, mask,
+                             blocked=blocked)
             else:
                 dinv = 1.0 / (mask * diag + (1.0 - mask))
                 pc = lambda v: dinv * v  # noqa: E731
@@ -724,7 +758,8 @@ class MGPreconditioner:
         tk_corr = [False] * max(nlev - 1, 0)
         if blocked:
             for li in range(nlev - 1):
-                if self._transfer_kernel(li) is None:
+                gli = start_level + li
+                if self._transfer_kernel(gli) is None:
                     continue
                 tk_use[li] = True
                 tk_corr[li] = bool(li == 0 and needs_corr[0])
@@ -732,7 +767,7 @@ class MGPreconditioner:
                     levels[li].mult_b = levels[li].K.to_blocked(
                         levels[li].mult_inv)
                 if tk_corr[li]:
-                    self._transfer_subkernels(li)
+                    self._transfer_subkernels(gli)
         # which jumps run blocked-native transfers, and with corrections
         self.last_tk_levels = [(li, tk_corr[li]) for li in range(nlev - 1)
                                if tk_use[li]]
@@ -740,7 +775,8 @@ class MGPreconditioner:
         def restrict(li, res):
             lvl, nxt = levels[li], levels[li + 1]
             if tk_use[li]:
-                return self._blocked_restrict(li, res, corr=tk_corr[li])
+                return self._blocked_restrict(start_level + li, res,
+                                              corr=tk_corr[li])
             if blocked:
                 res = lvl.K.from_blocked(res)
             rc = self._restrict(lvl, nxt.mesh, res)
@@ -749,7 +785,8 @@ class MGPreconditioner:
         def prolong(li, xc):
             lvl, nxt = levels[li], levels[li + 1]
             if tk_use[li]:
-                return self._blocked_prolong(li, xc, corr=tk_corr[li])
+                return self._blocked_prolong(start_level + li, xc,
+                                             corr=tk_corr[li])
             if blocked:
                 xc = nxt.K.from_blocked(xc)
             xf = self._prolong(lvl, nxt.mesh, xc)

@@ -151,8 +151,9 @@ def test_run_case_gmsh_on_cpu(tmp_path, monkeypatch):
 def test_gmsh_paths_that_raise(tmp_path):
     """IBM on a Gmsh domain without 'h-min' raises the reference's
     ValueError (IBM on Gmsh domains is ported:
-    tests/test_torch_ibm_gmsh_*.py); a -test mode ignores -gmsh, as the
-    reference's does; -sharded still raises, naming the queue item."""
+    tests/test_torch_ibm_gmsh_*.py); a -test mode ignores -gmsh, and so
+    does -sharded, as the reference's do: its distributed run is the
+    config's 10x10 box, on 2 gloo ranks."""
     path = quad_msh(tmp_path / "c.msh", 3)
     with open(ROOT / "configs" / "ibm-static.yaml") as f:
         ibm = yaml.safe_load(f)
@@ -166,6 +167,8 @@ def test_gmsh_paths_that_raise(tmp_path):
     res = run_case.main(["-case", "taylor-green", "-test", "kle", "-gmsh",
                          path] + base)
     assert len(res["errors"]) == 11
-    with pytest.raises(NotImplementedError, match="queue 1 #10"):
-        run_case.main(["-case", "uniform", "-gmsh", path, "-sharded", "2"]
-                      + base)
+    res = run_case.main(["-case", "uniform", "-gmsh", path, "-sharded", "2",
+                         "-max-steps", "1"] + base)
+    assert res["devices"] == 2 and res["steps"] == 1
+    assert res["n_dofs"] == 21 * 21 * 2  # 10x10 Q2, not the 3x3 file
+    assert np.isfinite(res["vort_norm"])

@@ -1,7 +1,7 @@
 """The port's command line (run_case.py) on the CPU: the CLI twins of
 tests/test_io_cli.py (the subprocess ones run the port's CLI with
--device cpu, and write under tmp_path), the CLI's refusals (no card
-without -device cpu, -sharded), and the
+-device cpu, and write under tmp_path), the CLI's refusal without a card
+and -device cpu, -sharded on 2 gloo ranks, and the
 reference's and the port's production run (time_solving) of
 ``-case taylor-green -nelem 3 3 -max-steps 2`` in float64, each in its
 own directory: the metrics, the checkpoint, the XDMF index and the HDF5
@@ -25,6 +25,7 @@ import yaml
 
 from pynama_tpu import run_case as ref_run_case
 from pynama_tpu_torch import run_case
+from pynama_tpu_torch.cases.cavity import CavityProblem
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROSS_TOL = 1e-10
@@ -108,11 +109,22 @@ def test_cli_without_a_card_exits_naming_cuda(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["-sharded", "2"]], ids=["sharded"])
 def test_unported_flags_raise(argv, tmp_path):
-    """-sharded raises (-gmsh, for the IBM cases too, is ported:
+    """-sharded, the last flag that raised, is ported: with -device cpu it
+    runs a 4x4 cavity on 2 gloo ranks, and matches the single-device
+    library run (the step count, t and the vorticity's norm; KLE rtol
+    1e-10). Every flag now runs (-gmsh, for the IBM cases too:
     tests/test_torch_ibm_gmsh_cli.py)."""
-    with pytest.raises(NotImplementedError, match="queue 1 #10"):
-        run_case.main(["-case", "uniform", "-device", "cpu", "-log",
-                       "WARNING", "-opt", f"save-dir={tmp_path}", *argv])
+    metrics = run_case.main(["-case", "cavity", "-nelem", "4", "4",
+                             "-max-steps", "1", "-device", "cpu", "-log",
+                             "WARNING", "-opt", f"save-dir={tmp_path}",
+                             *argv])
+    p = CavityProblem(run_case.load_config("cavity"), device="cpu",
+                      nelem=(4, 4)).setup()
+    w, t, n = p.run(max_steps=1)
+    assert metrics["devices"] == 2 and metrics["steps"] == n == 1
+    assert abs(metrics["final_time"] - t) < 1e-9 * t
+    norm = float(torch.linalg.norm(w))
+    assert abs(metrics["vort_norm"] - norm) < 1e-8 * norm
 
 
 def cli_args(device=None, **kw):
