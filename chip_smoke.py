@@ -250,11 +250,22 @@ Phases, each timed; any failure exits non-zero:
        and stencil2d launches per CG iteration, and that every tensor of
        the ShardedNSProblem is on cuda:0;
    17b run_case.main(["-case", "cavity", "-sharded", "1", "-nelem", "32",
-       "32", "-max-steps", "2", ...]): one spawned NCCL rank, owner.vtk
-       and the metrics file; then -sharded <visible cards + 1> must exit
-       with the reference's message;
+       "32", "-max-steps", "1", ...]) (2 steps until 17d was added): one
+       spawned NCCL rank, owner.vtk and the metrics file; then -sharded
+       <visible cards + 1> must exit with the reference's message;
    17c 17a's run on 2 and on 4 ranks, each only where that many cards
-       are visible (one card: neither runs, and the line says so).
+       are visible (one card: neither runs, and the line says so);
+   17d 14a's 128x128 Gmsh cavity (f64, 132,098 velocity dofs, unstructured-pc
+       jacobi) through ShardedUnstructuredProblem(p, 1) in an NCCL group
+       of one rank, run(max_steps=SHARDED_UNSTRUCTURED_STEPS) at 14a's
+       dt0, the launch counts reset just before the setup and read after
+       the run: the run's initial RHS and both of its solves' velocities
+       within GMSH_CPU_LIMIT (1e-8) of the problem's own single-device
+       RHS on the same inputs and warm starts (CG iterations side by
+       side); one all-reduce an elemental apply (sum of the solves' CG
+       iterations + 1, plus 8 a RHS); every tensor of the wrapper on
+       cuda:0, no stencil launch, a finite vorticity; setup seconds, ms
+       per step, CG iterations per solve, all-reduces per CG iteration.
 
 The last lines are a JSON line of every result, a JSON "kernels" line,
 the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -2808,7 +2819,16 @@ SHARDED_STEPS = 3
 # 17a/17c against phase 3: the owned-weight dots sum in another order,
 # so CG may stop an iteration apart; the ws legs' bound at KLE rtol 1e-5
 SHARDED_LIMIT = 1e-4
-# 17b: the reference's {case}-sharded{N}-metrics.yaml keys
+# 17d: ShardedUnstructuredProblem's steps on 14a's cavity (cut from 2:
+# its first step alone, two attempts, is 30 solves of ~1,840 Jacobi-CG
+# iterations), and the
+# elemental applies of one dual-mask RHS besides its CG solves' (Rw and
+# K bc for each of the two solves, two curls, SrT and DivSrT)
+SHARDED_UNSTRUCTURED_STEPS = 1
+RHS_FIXED_APPLIES = 8
+# 17b: the steps of run_case -sharded 1 (cut from 2 to make room for
+# 17d), and the reference's {case}-sharded{N}-metrics.yaml keys
+SHARDED_CLI_STEPS = 1
 SHARDED_METRICS = {"steps", "final_time", "elapsed_s", "devices", "n_dofs",
                    "platform", "distributed_multigrid", "s_per_step_steady",
                    "vort_norm"}
@@ -2961,8 +2981,9 @@ def sharded_cli(torch, out):
     n_cards = torch.cuda.device_count()
     with tempfile.TemporaryDirectory() as tmp:
         save = os.path.join(tmp, "run")
-        base = ["-case", "cavity", "-nelem", "32", "32", "-max-steps", "2",
-                "-log", "WARNING", "-opt", f"save-dir={save}"]
+        base = ["-case", "cavity", "-nelem", "32", "32", "-max-steps",
+                str(SHARDED_CLI_STEPS), "-log", "WARNING", "-opt",
+                f"save-dir={save}"]
         t0 = time.perf_counter()
         m = run_case.main(base + ["-sharded", "1"])
         secs = time.perf_counter() - t0
@@ -2984,7 +3005,8 @@ def sharded_cli(torch, out):
     print(f"  -sharded 1: {secs:.1f} s, metrics {m}; owner.vtk "
           f"{len(owner)} points; -sharded {n_cards + 1}: {refused!r}",
           flush=True)
-    if set(m) != SHARDED_METRICS or saved != m or m["steps"] != 2 \
+    if set(m) != SHARDED_METRICS or saved != m \
+            or m["steps"] != SHARDED_CLI_STEPS \
             or m["platform"] != "cuda" or m["devices"] != 1 \
             or not m["distributed_multigrid"] \
             or not math.isfinite(m["vort_norm"]):
@@ -3027,6 +3049,159 @@ def sharded_multi(torch, base_vort, out):
     return launches
 
 
+def unstructured_tensors(torch, sp):
+    """Every tensor a ShardedUnstructuredProblem holds: its own and its
+    chunk ElementOps' (elemental matrices, dof and contributor tables)."""
+    found = [v for k, v in vars(sp).items()
+             if k != "p" and isinstance(v, torch.Tensor)]
+    for op in sp.ops.values():
+        found += [op.A, op.in_dofs, op.out_dofs, op.table]
+    return found
+
+
+def unstructured_run(torch, pu, p, sp):
+    """17d's sp.run(max_steps=SHARDED_UNSTRUCTURED_STEPS), timed a step
+    (step 1 with the initial RHS), with its CG iterations and
+    all-reduces; the run's initial RHS (its two solves' velocities
+    recorded at pu.cg_solve) against the problem's own single-device RHS
+    on the same inputs, from the same warm starts (the final solve from
+    the free-slip one's, as the wrapper's)."""
+    marks, first, cg, once = [], {}, pu.cg_solve, sp._eval_rhs_once
+
+    def recorded(*args, **kwargs):
+        res = cg(*args, **kwargs)
+        first["solved"].append(res.x)
+        return res
+
+    def first_rhs(w, t, vel):
+        first.update(solved=[], t0=time.perf_counter())
+        pu.cg_solve = recorded
+        try:
+            first["f"] = once(w, t, vel)
+            torch.cuda.synchronize()
+        finally:
+            pu.cg_solve = cg
+        first.update(seconds=time.perf_counter() - first["t0"],
+                     cg_iters=list(p.cg_iters),
+                     all_reduce=sp.counts["all_reduce"])
+        return first["f"]
+
+    def cb(n, t, dt, w, vel):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dt))
+
+    p.cg_iters.clear()
+    sp.counts.clear()
+    sp._eval_rhs_once = first_rhs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        w, t, n = sp.run(max_steps=SHARDED_UNSTRUCTURED_STEPS, callback=cb)
+        torch.cuda.synchronize()
+    finally:
+        del sp._eval_rhs_once
+    iters, n_ar = list(p.cg_iters), sp.counts["all_reduce"]
+    starts = [t0] + [m[0] for m in marks]
+    res = {"steps": n, "t": t, "dt": [m[1] for m in marks],
+           "finite": bool(torch.isfinite(w).all()),
+           "step_ms": [1e3 * (b - a) for a, b in zip(starts, starts[1:])],
+           "first_step_incl_initial_rhs": True,
+           "kle_solves": len(iters), "cg_iters": iters,
+           "cg_iters_per_solve": sum(iters) / max(len(iters), 1),
+           "all_reduce": n_ar,
+           "all_reduce_formula": sum(i + 1 for i in iters)
+           + RHS_FIXED_APPLIES * (len(iters) // 2),
+           "all_reduce_per_cg_iteration": n_ar / max(sum(iters), 1)}
+
+    p.cg_iters.clear()
+    t1 = time.perf_counter()
+    f1, aux = p.transport_rhs(p.t_start, p.initial_vorticity(), (
+        p.zero_vel(), None))
+    torch.cuda.synchronize()
+    mine, single = [first["f"]] + first["solved"], (f1,) + aux
+    res["initial_rhs"] = {
+        "rel_diff_rhs_vel_fs_vel": [rel_diff(torch, a, b)
+                                    for a, b in zip(mine, single)],
+        "bitwise": len(mine) == 3 and all(
+            bool(torch.equal(a, b)) for a, b in zip(mine, single)),
+        "cg_iters": first["cg_iters"], "single_cg_iters": list(p.cg_iters),
+        "all_reduce": first["all_reduce"],
+        "all_reduce_formula": sum(i + 1 for i in first["cg_iters"])
+        + RHS_FIXED_APPLIES, "seconds": first["seconds"],
+        "single_seconds": time.perf_counter() - t1}
+    return res
+
+
+def sharded_unstructured(torch, stencil, out):
+    """17d (see the module's docstring); returns its record."""
+    import torch.distributed as dist
+
+    import pynama_tpu_torch.parallel.unstructured as pu
+    from pynama_tpu_torch.cases.cavity import CavityProblem
+    from pynama_tpu_torch.parallel import launch
+
+    n = GMSH_CAVITY_N
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cavity.msh")
+        pts, quads = box_corner_mesh(n, n, distort=0.15 / n, seed=1)
+        write_msh22(path, pts, quads, 3)
+        cfg = dict(gmsh_cavity_config(path, n), **{"unstructured-pc":
+                                                   "jacobi"})
+        launch.init_group("nccl", "file://" + os.path.join(tmp, "rdv"), 1, 0)
+        try:
+            # NCCL makes its communicator at the first collective: here,
+            # outside the timed run
+            dist.barrier()
+            for k in stencil.LIBRARIES:
+                k.reset_counts()
+            t0 = time.perf_counter()
+            p = CavityProblem(cfg).setup()
+            sp = pu.ShardedUnstructuredProblem(p, 1)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            tensors = unstructured_tensors(torch, sp)
+            here = {str(x.device) for x in tensors}
+            res = unstructured_run(torch, pu, p, sp)
+            launches = {k.name: k.launches for k in stencil.KERNELS.values()}
+        finally:
+            dist.destroy_process_group()
+    res.update(cells=p.mesh.n_cells, velocity_dofs=sp.n_vel,
+               setup_s=setup_s, setup_split_s=dict(p.setup_s),
+               tensors=len(tensors), tensor_devices=sorted(here),
+               stencil_launches=launches)
+    out["sharded_unstructured"] = res
+    first = res["initial_rhs"]
+    print(f"  {res['cells']} cells, {res['velocity_dofs']} velocity dofs; "
+          f"setup {setup_s:.2f} s; {len(tensors)} tensors on "
+          f"{sorted(here)}; stencil launches {launches}", flush=True)
+    rels = ", ".join(f"{r:.3e}" for r in first["rel_diff_rhs_vel_fs_vel"])
+    print(f"  initial RHS vs the single-device problem's: RHS, free-slip "
+          f"and final velocity {rels} (limit {GMSH_CPU_LIMIT:g}), bitwise "
+          f"{first['bitwise']}; CG "
+          f"{first['cg_iters']} (single-device {first['single_cg_iters']}); "
+          f"{first['all_reduce']} all-reduces (formula "
+          f"{first['all_reduce_formula']}); {first['seconds']:.2f} s "
+          f"(single-device {first['single_seconds']:.2f} s)", flush=True)
+    print(f"  {res['steps']} steps: {[round(x, 1) for x in res['step_ms']]} "
+          f"ms (step 1 with the initial RHS), dt {res['dt']}; "
+          f"{res['kle_solves']} KLE solves, {res['cg_iters_per_solve']:.1f} "
+          f"CG iterations per solve (max {max(res['cg_iters'])}); "
+          f"{res['all_reduce']} all-reduces (formula "
+          f"{res['all_reduce_formula']}), "
+          f"{res['all_reduce_per_cg_iteration']:.4f} a CG iteration; "
+          f"finite {res['finite']}", flush=True)
+    if here != {"cuda:0"} or any(launches.values()):
+        fail(f"17d: tensors on {here}, stencil launches {launches}")
+    if not max(first["rel_diff_rhs_vel_fs_vel"]) <= GMSH_CPU_LIMIT:
+        fail("17d: the initial RHS is off the single-device problem's")
+    if first["all_reduce"] != first["all_reduce_formula"] or \
+            res["all_reduce"] != res["all_reduce_formula"]:
+        fail("17d: the all-reduces are not one an elemental apply")
+    if res["steps"] != SHARDED_UNSTRUCTURED_STEPS or not res["finite"]:
+        fail(f"17d: {res['steps']} steps, finite vorticity {res['finite']}")
+    return res
+
+
 def phase_sharded_legs(torch, stencil, phase, base_vort, checked, out):
     """Phase 17 (see the module's docstring). Returns stencil2d's
     launches by leg and the rows of 17a's new shapes."""
@@ -3042,6 +3217,10 @@ def phase_sharded_legs(torch, stencil, phase, base_vort, checked, out):
     launches = phase("sharded_multi", "[17c] 17a on 2 and 4 NCCL ranks, "
                      "where that many cards are visible",
                      lambda: sharded_multi(torch, base_vort, out))
+    phase("sharded_unstructured", "[17d] ShardedUnstructuredProblem, 1 NCCL "
+          f"rank: 14a's {GMSH_CAVITY_N}x{GMSH_CAVITY_N} Gmsh cavity, f64, "
+          f"Jacobi-CG, {SHARDED_UNSTRUCTURED_STEPS} step(s)",
+          lambda: sharded_unstructured(torch, stencil, out))
     launches["17a"] = res["stencil_launches"]
     new = Counter({s: c for s, c in res["logged_shapes"].items()
                    if s not in checked})

@@ -12,6 +12,7 @@ import torch
 from pynama_tpu_torch.device import resolve_device
 from pynama_tpu_torch.ops.assembly import make_element_op
 from pynama_tpu_torch.ops.structured import StructuredElementOp
+from pynama_tpu_torch.parallel.unstructured import cell_range
 
 
 def _t(a, dtype, device):
@@ -84,3 +85,21 @@ def ibm_windows(nodes, weights, dtype=torch.float64, device=None):
     return (torch.tensor(np.asarray(nodes), dtype=torch.int64,
                          device=resolve_device(device)),
             _t(weights, dtype, device))
+
+
+def chunk_tables_to_rank(chunks, n_cells, rank, dtype=torch.float64,
+                         device=None):
+    """Rank ``rank``'s ``(A, in_dofs, out_dofs)`` from the reference's
+    chunk tables (``ShardedUnstructuredProblem.K_c`` and the like: A
+    (P, E_loc, out_k, in_k), in_dofs (P, E_loc, in_k), out_dofs (P,
+    E_loc, out_k)) of a mesh of ``n_cells`` cells, the padding rows
+    dropped: A of ``dtype``, the dof tables int64."""
+    A, in_dofs, out_dofs = (np.asarray(x)[rank] for x in chunks)
+    lo, hi = cell_range(n_cells, len(chunks[0]), rank)
+    n = hi - lo
+    device = resolve_device(device)
+
+    def idx(a):
+        return torch.as_tensor(a[:n].astype(np.int64), device=device)
+
+    return _t(A[:n], dtype, device), idx(in_dofs), idx(out_dofs)

@@ -32,8 +32,13 @@ ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
 def init_group(backend, init_method, world_size, rank,
                timeout=COLLECTIVE_TIMEOUT):
     """torch.distributed's default group, with a collective timeout; on
-    NCCL, rank r's current device is cuda:r."""
+    NCCL, rank r's current device is cuda:r, and torch's NCCL flight
+    recorder is off unless the environment sizes it
+    (TORCH_FR_BUFFER_SIZE, read when the first NCCL group is made): it
+    records every collective with its stack on the host, a cost paid
+    once a CG iteration by the distributed solves."""
     if backend == "nccl":
+        os.environ.setdefault("TORCH_FR_BUFFER_SIZE", "0")
         torch.cuda.set_device(rank)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank,

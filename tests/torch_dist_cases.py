@@ -1,7 +1,8 @@
 """The cases that the distributed twins run on gloo ranks
-(tests/test_torch_sharded.py, tests/test_torch_dist_mg.py): the
-configs of tests/test_sharded.py and the port's runs of them, on ranks
-and on one device. Spawned ranks import this module by name, so it
+(tests/test_torch_sharded.py, tests/test_torch_dist_mg.py,
+tests/test_torch_unstructured_dist*.py): the configs of
+tests/test_sharded.py and the port's runs of them, on ranks and on one
+device. Spawned ranks import this module by name, so it
 imports torch, numpy and the port, never JAX.
 
 ``run_jobs(rank, jobs)`` runs a list of (key, case name, args) on every
@@ -9,11 +10,13 @@ rank of the group and returns the rank's {key: result}."""
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pynama_tpu_torch.cases.analytic import CustomFuncProblem
 from pynama_tpu_torch.cases.cavity import CavityProblem
 from pynama_tpu_torch.cases.uniform import UniformFlowProblem
 from pynama_tpu_torch.parallel.sharded_problem import ShardedNSProblem
+from pynama_tpu_torch.parallel.unstructured import ShardedUnstructuredProblem
 
 CASES = {"taylor-green": lambda cfg: CustomFuncProblem(
              cfg, case="taylor-green", device="cpu"),
@@ -165,6 +168,54 @@ def patch_apply(cfg, n_dev, ref):
                             and torch.equal(sp.mask, mask)
                             and torch.equal(sp.shard(ref["r_flat"], p.dim),
                                             r))}
+
+
+def unstructured_run(kind, cfg):
+    """(flat vorticity, t, steps, CG iterations, all-reduces) of
+    ShardedUnstructuredProblem(p, world size).run()."""
+    p = CASES[kind](cfg).setup()
+    sp = ShardedUnstructuredProblem(p, dist.get_world_size())
+    w, t, n = sp.run()
+    return flat(w), t, n, list(p.cg_iters), sp.counts["all_reduce"]
+
+
+def unstructured_rhs(cfg, chunks):
+    """The initial RHS of a cavity through ShardedUnstructuredProblem(p,
+    world size)._eval_rhs_once, its chunk ElementOps made from the
+    reference's chunk tables (``chunks``: name -> (A_c, in_c, out_c))
+    through convert.chunk_tables_to_rank. Returns (f, CG iterations,
+    all-reduces)."""
+    from pynama_tpu_torch.convert import chunk_tables_to_rank
+    from pynama_tpu_torch.ops.assembly import ElementOp
+
+    p = CavityProblem(cfg, device="cpu").setup()
+    sp = ShardedUnstructuredProblem(p, dist.get_world_size())
+    for name, op in sp.ops.items():
+        sp.ops[name] = ElementOp(*chunk_tables_to_rank(
+            chunks[name], p.mesh.n_cells, dist.get_rank(), device="cpu"),
+            op.out_size)
+    w = sp._flat(p.initial_vorticity())
+    f = sp._eval_rhs_once(w, p.t_start, torch.zeros_like(sp.mask))
+    return flat(f), list(p.cg_iters), sp.counts["all_reduce"]
+
+
+def unstructured_refusals(kind, cfg):
+    """The errors of ShardedUnstructuredProblem with n_dev other than the
+    group's size, and with a problem whose device is the card in a gloo
+    group (its device read before any tensor is made), by name."""
+    p = CASES[kind](cfg).setup()
+    out = {}
+    for name, n_dev, device in (
+            ("n_dev", dist.get_world_size() + 1, p.device),
+            ("device", dist.get_world_size(), torch.device("cuda", 0))):
+        p.device, cpu = device, p.device
+        try:
+            ShardedUnstructuredProblem(p, n_dev)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+        p.device = cpu
+    return out
 
 
 def run_jobs(rank, jobs):
