@@ -111,9 +111,18 @@ Phases, each timed; any failure exits non-zero:
        with the plain version forced, 3 steps: vorticity within 1e-8,
        the same steps, t within 1e-9 (the adaptive dt follows wlte, as
        wlte^(-1/5)), the last cd within 1e-6;
-   12e stencil2d against its plain version at every shape 12a-12c
-       logged (float64, 1e-12), timed as device time beside cuDNN's,
-       and four bitwise-equal launches at the non-square fine shape and
+   12f 12c's configuration under kle-refine (float64 state, true
+       float64 residuals, float32 V-cycles through kle.solve_ir),
+       IBM_REFINE_STEPS (3) steps: the slip after every step, stencil2d
+       launching both float64 and float32, every tensor of the problem on
+       cuda:0, the inner system float32, refinement rounds and inner CG
+       iterations per step, and the final vorticity within
+       IBM_REFINE_VORT_LIMIT of 12c's (100 x the port's refined vs
+       unrefined 12x12 pair on the CPU, ibm_refine_vort_cpu());
+   12e stencil2d against its plain version at every shape 12a-12c and
+       12f logged (float64 to 1e-12; 12f's float32 V-cycle shapes to
+       1e-5), timed as device time beside cuDNN's, and four
+       bitwise-equal launches at the non-square fine float64 shape and
        at the most-split float64 shape;
 13. the command line: pynama_tpu_torch.run_case.main(argv) called in
    this process (the CUDA device, the default), the working directory
@@ -126,12 +135,12 @@ Phases, each timed; any failure exits non-zero:
        the run's final one) and, where h5py is installed,
        vec-data-00002.h5 (the same); cut from 4 steps to keep the
        script's time as phase 15 was added;
-   13b 13a's run to step 1 (-opt save-n-steps=1), then -resume from its
-       checkpoint to step 2:
-       a resumed cavity warm-starts both of its solves from the
-       checkpoint's one velocity (as the reference's), so the final
-       vorticity matches 13a's within CLI_RESUME_FACTOR x the KLE rtol,
-       not bit for bit (whether it is bitwise is reported);
+   13b -resume from 13a's step-1 checkpoint (a copy kept when 13a saved
+       it) to step 2 (until 12f was added, 13b ran step 1 again to a
+       checkpoint of its own): a resumed cavity warm-starts both of its
+       solves from the checkpoint's one velocity (as the reference's), so
+       the final vorticity matches 13a's within CLI_RESUME_FACTOR x the
+       KLE rtol, not bit for bit (whether it is bitwise is reported);
    13c full width: cavity_config(384) written as a YAML file and run
        with -config <file> -case cavity -dtype float32, -max-steps 3
        -opt save-n-steps=2, then resumed from the step-2 checkpoint to
@@ -279,6 +288,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -314,6 +324,12 @@ IBM_CD_LIMIT = 1e-6
 # the adaptive dt goes as wlte^(-1/5): kernel and plain runs whose states
 # differ by IBM_PLAIN_LIMIT end their steps that far apart over ~5 and more
 IBM_T_LIMIT = 1e-9
+# 12f: the Re-40 geometry under kle-refine, as many steps as 12c, its
+# final vorticity against 12c's (unrefined) within 100 x the port's refined
+# vs unrefined 12x12 runs on the CPU (ibm_refine_vort_cpu())
+IBM_REFINE_STEPS = 3
+IBM_REFINE_VORT_CPU = 1.7742624261236585e-06
+IBM_REFINE_VORT_LIMIT = 100 * IBM_REFINE_VORT_CPU
 # configs/ibm-static.yaml and configs/ibm-dynamic.yaml as shipped (copied;
 # tests/test_torch_ibm_dynamic.py holds the copies equal to the files)
 IBM_CONFIGS = {
@@ -516,6 +532,31 @@ def ibm_small_config(nelem):
     }
 
 
+def ibm_refine_vort_cpu():
+    """The source of IBM_REFINE_VORT_CPU: ibm_small_config(12) at
+    kle-rtol 1e-8 run IBM_REFINE_STEPS steps on the CPU with kle-refine
+    on and off, the relative difference of the final vorticities (one
+    torch thread, as tests/test_torch_ibm_regression.py runs it).
+
+        python3 -c "import chip_smoke; print(chip_smoke.ibm_refine_vort_cpu())"
+    """
+    import torch
+
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+
+    vorts = []
+    for refine in (True, False):
+        cfg = {**ibm_small_config(12), "kle-rtol": 1e-8,
+               "kle-refine": refine}
+        p = ImmersedBoundaryProblem(cfg, device="cpu").setup()
+        vort, _, n = p.run(max_steps=IBM_REFINE_STEPS)
+        if n != IBM_REFINE_STEPS or p._refine != refine:
+            fail(f"ibm_refine_vort_cpu: {n} steps, refine {p._refine}")
+        vorts.append(vort)
+    a, b = vorts
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
 def fail(msg):
     raise RuntimeError(msg)
 
@@ -708,14 +749,21 @@ def repeat_bitwise(torch, kern, xs, ws, name):
 
 
 def phase_main(torch, stencil, kern, make_problem, key, out, extra=None,
-               steps=3):
+               steps=3, on_step=None):
     """setup() + run(max_steps=steps) through the kernels, the launch
-    counts set to 0 just before and read just after."""
-    marks = []
+    counts set to 0 just before and read just after; on_step(p, n, t,
+    vel) runs after each accepted step, its time left out of the step
+    times."""
+    marks = []  # (the step's end, launches, KLE solves, the hook's end)
 
     def callback(n, t, dt, vort, vel):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), kern.launches, len(p.cg_iters)))
+        now = time.perf_counter()
+        if on_step is not None:
+            on_step(p, n, t, vel)
+            torch.cuda.synchronize()
+        marks.append((now, kern.launches, len(p.cg_iters),
+                      time.perf_counter() if on_step else now))
 
     for k in stencil.LIBRARIES:
         k.reset_counts()
@@ -741,7 +789,7 @@ def phase_main(torch, stencil, kern, make_problem, key, out, extra=None,
         fail(f"{key}: expected {steps} accepted steps, got {n}")
     if not math.isfinite(norm) or not bool(torch.isfinite(vort).all()):
         fail(f"{key}: final vorticity is not finite")
-    step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])]
+    step_ms = [1e3 * (b[0] - a[3]) for a, b in zip(marks, marks[1:])]
     step_launches = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
     step_iters = [p.cg_iters[a[2]:b[2]] for a, b in zip(marks, marks[1:])]
     if not all(s > 0 for s in step_launches) or launches[kern.name] <= 0:
@@ -1216,11 +1264,13 @@ def phase_ws_legs(torch, stencil, phase, held, out):
     return sl11a, sl11c
 
 
-def ibm_slip(p, t):
-    """max |H u - U_body| of a run's final corrected velocity at t."""
+def ibm_slip(p, t, vel=None):
+    """max |H u - U_body| at t of a corrected velocity (grid or flat;
+    default the run's final one)."""
     X, Ub = p._body_state(t)
     nodes, weights = p.coupling.windows(X)
-    return float((p.coupling.interp(p.vel, nodes, weights) - Ub).abs().max())
+    vel = p.vel if vel is None else vel.reshape(-1)
+    return float((p.coupling.interp(vel, nodes, weights) - Ub).abs().max())
 
 
 def grid_from_blocked(xb, P, npts):
@@ -1261,7 +1311,8 @@ def ibm_extra(torch, kern, key, held):
     """A phase_main ``extra`` for phase 12's legs: the slip at the body,
     the last cd, the flux-CG iterations of every post-step (the initial
     one, then the step's and the force floor's, 2 a step), stencil2d's
-    launches by instance and dtype, and whether the body moved; keeps
+    launches by instance and dtype (only float64, or under kle-refine
+    both float64 and float32), and whether the body moved; keeps
     (problem, vorticity) in held[key]."""
     def extra(p, vort):
         t = p.t_history[-1]
@@ -1299,7 +1350,11 @@ def ibm_extra(torch, kern, key, held):
             fail(f"{key}: last cd {cd} is not positive")
         if p.body.is_moving and not moved > 0:
             fail(f"{key}: the body did not move")
-        if dtypes["float64"] <= 0 or dtypes["float32"] != 0:
+        if p._refine and (dtypes["float64"] <= 0 or dtypes["float32"] <= 0):
+            fail(f"{key}: {kern.name} launches by dtype {dtypes}; the "
+                 "refined path must launch both float64 (the defects, the "
+                 "transport chain) and float32 (the V-cycles)")
+        if not p._refine and (dtypes["float64"] <= 0 or dtypes["float32"]):
             fail(f"{key}: {kern.name} launches by dtype {dtypes}; the "
                  "float64 path must launch only the float64 instance")
         held[key] = p, vort
@@ -1368,9 +1423,96 @@ def phase_ibm_repeat(torch, make_problem, held, out):
         fail("12a repeat: not 3 steps, or the vorticity is not finite")
 
 
+def problem_tensors(torch, p, skip=()):
+    """Every tensor a problem (or a distributed wrapper) reaches through
+    its attributes: its own, and those of the port's objects, lists,
+    tuples, dicts and closures it holds (systems, operators, masks,
+    multigrid levels, the V-cycles' closures, the coupling), except
+    through the objects in ``skip``."""
+    found, seen = [], {id(x) for x in skip}
+
+    def walk(x):
+        if id(x) in seen:
+            return
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            found.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif getattr(x, "__closure__", None):
+            for c in x.__closure__:
+                try:
+                    walk(c.cell_contents)
+                except ValueError:  # a cell not yet filled
+                    pass
+        elif type(x).__module__.startswith("pynama_tpu_torch") and \
+                hasattr(x, "__dict__"):
+            for v in vars(x).values():
+                walk(v)
+
+    walk(p)
+    return found
+
+
+def ibm_refine_leg(torch, stencil, base, out):
+    """12f: 12c's configuration under kle-refine through phase_main, 3
+    steps: the slip after every step, refinement rounds and inner CG
+    iterations a step, every tensor of the problem on cuda:0, the inner
+    system float32, and the final vorticity against 12c's (``base``, the
+    same step count) within IBM_REFINE_VORT_LIMIT; plus ibm_extra's
+    checks, stencil2d launching both float64 and float32."""
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+    from pynama_tpu_torch.scripts.ibm_regression import StepSolves
+
+    key, k2, held, rows = "ibm_re40_refine", stencil.KERNEL, {}, []
+    solves = []
+
+    def on_step(p, n, t, vel):
+        if not solves:  # step 1 counts the initial solves too
+            solves.append(StepSolves(p, mark=(0, 0)))
+        rows.append({"step": n, "slip": ibm_slip(p, t, vel), **solves[0]()})
+
+    checks = ibm_extra(torch, k2, key, held)
+
+    def extra(p, vort):
+        res = checks(p, vort)
+        devices = sorted({str(x.device) for x in problem_tensors(torch, p)})
+        inner = str(p.system32.diag_K.dtype).replace("torch.", "")
+        rel = rel_diff(torch, vort, base)
+        slips = [r["slip"] for r in rows]
+        res.update(per_step=rows, slip_per_step=slips, tensor_devices=devices,
+                   inner_dtype=inner, vort_rel_diff_vs_12c=rel,
+                   vort_limit=IBM_REFINE_VORT_LIMIT,
+                   rounds_per_solve=sum(p.ir_rounds) / len(p.ir_rounds))
+        print(f"  per step (slip, rounds, inner CG, KLE solves): "
+              + "; ".join(f"{r['step']}: {r['slip']:.2e}, {r['rounds']}, "
+                          f"{r['inner_cg_iters']}, {r['kle_solves']}"
+                          for r in rows)
+              + f"; {res['rounds_per_solve']:.3f} rounds a solve; inner "
+              f"system {inner}; tensors on {devices}; vorticity vs 12c "
+              f"{rel:.3e} (limit {IBM_REFINE_VORT_LIMIT:.3e})", flush=True)
+        if len(rows) != IBM_REFINE_STEPS or not max(slips) < SLIP_LIMIT:
+            fail(f"12f: slip per step {slips} (limit {SLIP_LIMIT:g})")
+        if not p._refine or inner != "float32" or devices != ["cuda:0"]:
+            fail(f"12f: refine {p._refine}, inner system {inner}, "
+                 f"tensors on {devices}")
+        if not rel <= IBM_REFINE_VORT_LIMIT:
+            fail(f"12f: vorticity vs 12c {rel:.3e} > "
+                 f"{IBM_REFINE_VORT_LIMIT:.3e}")
+        return res
+
+    return phase_main(torch, stencil, k2, lambda: ImmersedBoundaryProblem(
+        {**ibm_re40_config(), "kle-refine": True}), key, out, extra=extra,
+        steps=IBM_REFINE_STEPS, on_step=on_step)
+
+
 def phase_ibm_legs(torch, stencil, phase, out):
     """Phase 12 (see the module's docstring). Returns phase_main's
-    records of 12a, 12b and 12c and 12e's rows."""
+    records of 12a, 12b, 12c and 12f and 12e's rows."""
     from collections import Counter
 
     from pynama_tpu_torch.cases.immersed import (
@@ -1400,7 +1542,15 @@ def phase_ibm_legs(torch, stencil, phase, out):
                   "[12a] the same run again: bitwise equal? host syncs",
                   lambda: phase_ibm_repeat(
                       torch, lambda: cls(cfg), held, out))
+        if key == "ibm_re40":
+            base = held["ibm_re40"][1]
         held.clear()
+    records["ibm_re40_refine"], shapes = phase(
+        "ibm_re40_refine", "[12f] 12c's geometry under kle-refine: float64 "
+        f"state, float32 V-cycles, {IBM_REFINE_STEPS} steps",
+        lambda: ibm_refine_leg(torch, stencil, base, out))
+    logged.update(shapes)
+    del base
 
     def plain_compare_ibm():
         pk, pp = phase_plain_compare(
@@ -1424,10 +1574,11 @@ def phase_ibm_legs(torch, stencil, phase, out):
     def kernels_and_repeats():
         rows = phase_logged_kernels(torch, stencil, k2, logged, launches,
                                     "ibm_kernels", out)
-        fine = max((r for r in rows if r["x"][0] != r["x"][1]),
+        f64 = [r for r in rows if r["dtype"] == "float64"]
+        fine = max((r for r in f64 if r["x"][0] != r["x"][1]),
                    key=lambda r: r["main_path_launches"]
                    * _flops(r["x"], r["W"]))
-        split = max(rows, key=lambda r: k2.plan(
+        split = max(f64, key=lambda r: k2.plan(
             tuple(r["x"]), tuple(r["W"]), torch.float64).split)
         out["ibm_kernels"]["repeats"] = [
             repeat_bitwise(torch, k2, tuple(r["x"]), tuple(r["W"]),
@@ -1435,18 +1586,19 @@ def phase_ibm_legs(torch, stencil, phase, out):
         return rows
 
     rows = phase("ibm_kernels",
-                 "[12e] stencil2d vs plain version at the IBM legs' shapes",
-                 kernels_and_repeats)
+                 "[12e] stencil2d vs plain version at the IBM legs' shapes "
+                 "(12f's float32 ones too)", kernels_and_repeats)
     return records, rows
 
 
 @contextlib.contextmanager
-def cli_probe(torch):
+def cli_probe(torch, keep=None):
     """Phase 13's hooks around run_case.main calls: every problem
     run_case.make_problem makes (its ``step_marks``: the host clock after
     each accepted step, synchronized), and the seconds of every checkpoint
-    and XDMF save in ``saves``, as (kind, step, seconds). Restored on
-    exit."""
+    and XDMF save in ``saves``, as (kind, step, seconds); a copy of the
+    checkpoint of step ``keep`` as <path>.<step>, which the next save
+    would overwrite, made within its save's seconds. Restored on exit."""
     from pynama_tpu_torch import run_case
     from pynama_tpu_torch.io import checkpoint
 
@@ -1463,6 +1615,8 @@ def cli_probe(torch):
             t0 = time.perf_counter()
             res = fn(*args, **kw)
             step = kw["step"] if kind == "checkpoint" else args[1]
+            if kind == "checkpoint" and step == keep:
+                shutil.copyfile(args[0], f"{args[0]}.{step}")
             rec["saves"].append((kind, step, time.perf_counter() - t0))
             return res
         return call
@@ -1496,11 +1650,12 @@ def cli_probe(torch):
             xdmf.XdmfWriter.save_fields = save_fields
 
 
-def run_cli_leg(torch, stencil, argvs):
+def run_cli_leg(torch, stencil, argvs, keep=None):
     """Each argv through run_case.main in this process, in order, the
     launch counts set to 0 just before the first and read just after the
-    last. Returns ([(main's result, its problem, its saves)], stencil2d's
-    launches, its logged shapes, the seconds)."""
+    last; the checkpoints of step ``keep`` are kept (cli_probe). Returns
+    ([(main's result, its problem, its saves)], stencil2d's launches, its
+    logged shapes, the seconds)."""
     from collections import Counter
 
     from pynama_tpu_torch import run_case
@@ -1513,7 +1668,7 @@ def run_cli_leg(torch, stencil, argvs):
     calls = []
     for argv in argvs:
         print("  run_case " + " ".join(argv), flush=True)
-        with cli_probe(torch) as rec:
+        with cli_probe(torch, keep) as rec:
             res = run_case.main(argv + ["-log", "WARNING"])
             torch.cuda.synchronize()
         if len(rec["problems"]) != 1:
@@ -1539,7 +1694,8 @@ def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
     last = CLI_CAVITY_STEPS
     calls, n, shapes, sec = run_cli_leg(torch, stencil, [
         ["-case", "cavity", "-max-steps", str(last), "-opt",
-         f"save-n-steps={last // 2}", "-opt", f"save-dir={d}"]])
+         f"save-n-steps={last // 2}", "-opt", f"save-dir={d}"]],
+        keep=last // 2)
     (metrics, pa, saves), = calls
     with open(os.path.join(d, "cavity-metrics.yaml")) as f:
         on_disk = yaml.safe_load(f)
@@ -1580,17 +1736,18 @@ def cli_cavity_legs(torch, stencil, tmp, base_vort, out):
         fail("13a: metrics, checkpoint or fields wrong, or no launches")
     legs["13a"] = (n, shapes)
 
-    d1, d2 = os.path.join(tmp, "13b"), os.path.join(tmp, "13b-resumed")
+    # the resume from 13a's step-1 checkpoint, kept by cli_probe
     half = last // 2
+    ck_half = os.path.join(d, f"checkpoint.npz.{half}")
+    if load_checkpoint(ck_half)["step"] != half:
+        fail(f"13a: the kept checkpoint is not step {half}'s")
     calls, n, shapes, sec = run_cli_leg(torch, stencil, [
-        ["-case", "cavity", "-max-steps", str(half), "-opt",
-         f"save-n-steps={half}", "-opt", f"save-dir={d1}"],
-        ["-case", "cavity", "-resume", os.path.join(d1, "checkpoint.npz"),
-         "-max-steps", str(last), "-opt", f"save-dir={d2}"]])
-    pb = calls[1][1]
+        ["-case", "cavity", "-resume", ck_half, "-max-steps", str(last),
+         "-opt", f"save-dir={os.path.join(tmp, '13b-resumed')}"]])
+    pb = calls[0][1]
     rel = rel_diff(torch, pb.vort, pa.vort)
     limit = CLI_RESUME_FACTOR * pb.kle_rtol
-    res = {"steps": calls[1][0]["steps"], "vort_rel_diff_vs_13a": rel,
+    res = {"steps": calls[0][0]["steps"], "vort_rel_diff_vs_13a": rel,
            "limit": limit, "bitwise": bool(torch.equal(pb.vort, pa.vort)),
            "stencil_launches": n, "seconds": sec}
     out["cli_cavity_resume"] = res
@@ -2834,29 +2991,6 @@ SHARDED_METRICS = {"steps", "final_time", "elapsed_s", "devices", "n_dofs",
                    "vort_norm"}
 
 
-def sharded_tensors(torch, sp):
-    """Every tensor a ShardedNSProblem holds: its own, its local ops'
-    (elemental matrices and built kernels) and its distributed
-    multigrid's (per-level tensors, transfer and patch kernels, coarse
-    inverse)."""
-    found = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            found.append(x)
-        elif isinstance(x, dict):
-            for v in x.values():
-                walk(v)
-        elif isinstance(x, (list, tuple)):
-            for v in x:
-                walk(v)
-
-    walk([v for k, v in vars(sp).items() if k != "p"])
-    for op in (sp.K_op, sp.Rw_op, sp.Curl_op, sp.SrT_op, sp.Div_op):
-        walk([op.A, op._kernels()])
-    return found
-
-
 def sharded_run(torch, stencil, sp, steps):
     """sp.run(max_steps=steps) with the launch and collective counts set
     to 0 just before and read just after: per-step marks, the record."""
@@ -2931,7 +3065,9 @@ def sharded_single(torch, stencil, base_vort, base, out):
             sp = ShardedNSProblem(p, 1)
             torch.cuda.synchronize()
             setup_s = time.perf_counter() - t0
-            tensors = sharded_tensors(torch, sp)
+            for op in (sp.K_op, sp.Rw_op, sp.Curl_op, sp.SrT_op, sp.Div_op):
+                op._kernels()  # built at their first apply otherwise
+            tensors = problem_tensors(torch, sp, skip=(sp.p,))
             here = {str(x.device) for x in tensors}
             w, res = sharded_run(torch, stencil, sp, SHARDED_STEPS)
             vort = sp.unshard(w, 1)
@@ -3049,16 +3185,6 @@ def sharded_multi(torch, base_vort, out):
     return launches
 
 
-def unstructured_tensors(torch, sp):
-    """Every tensor a ShardedUnstructuredProblem holds: its own and its
-    chunk ElementOps' (elemental matrices, dof and contributor tables)."""
-    found = [v for k, v in vars(sp).items()
-             if k != "p" and isinstance(v, torch.Tensor)]
-    for op in sp.ops.values():
-        found += [op.A, op.in_dofs, op.out_dofs, op.table]
-    return found
-
-
 def unstructured_run(torch, pu, p, sp):
     """17d's sp.run(max_steps=SHARDED_UNSTRUCTURED_STEPS), timed a step
     (step 1 with the initial RHS), with its CG iterations and
@@ -3159,7 +3285,7 @@ def sharded_unstructured(torch, stencil, out):
             sp = pu.ShardedUnstructuredProblem(p, 1)
             torch.cuda.synchronize()
             setup_s = time.perf_counter() - t0
-            tensors = unstructured_tensors(torch, sp)
+            tensors = problem_tensors(torch, sp, skip=(sp.p,))
             here = {str(x.device) for x in tensors}
             res = unstructured_run(torch, pu, p, sp)
             launches = {k.name: k.launches for k in stencil.KERNELS.values()}
@@ -3620,7 +3746,8 @@ def main():
     ws2 = {"11a": sl11a["stencil_launches"],
            "11b": out["ws_scan"]["stencil_launches"]}
     ibm2 = {leg: sl12[key]["stencil_launches"] for leg, key in (
-        ("12a", "ibm_static"), ("12b", "ibm_dynamic"), ("12c", "ibm_re40"))}
+        ("12a", "ibm_static"), ("12b", "ibm_dynamic"), ("12c", "ibm_re40"),
+        ("12f", "ibm_re40_refine"))}
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
                         + sl10["stencil_launches"] + sum(ws2.values())
