@@ -119,9 +119,17 @@ Phases, each timed; any failure exits non-zero:
        iterations per step, and the final vorticity within
        IBM_REFINE_VORT_LIMIT of 12c's (100 x the port's refined vs
        unrefined 12x12 pair on the CPU, ibm_refine_vort_cpu());
-   12e stencil2d against its plain version at every shape 12a-12c and
-       12f logged (float64 to 1e-12; 12f's float32 V-cycle shapes to
-       1e-5), timed as device time beside cuDNN's, and four
+   12g the Re-100 Strouhal protocol's configuration
+       (scripts/ibm_regression.py st_config(), KickedCylinder: 96x64 Q2
+       on [-4,8]x[-4,4], 24,897 nodes, Re 100, kle-rtol 1e-7, under
+       kle-refine), IBM_REFINE_STEPS (3) steps from the kicked vorticity:
+       12f's checks (slip after every step, float64 and float32
+       launches, every tensor on cuda:0, the inner system float32, one
+       raw lift entry a step) and the kick on the card in float64,
+       bitwise ibm_regression.kick() of the mesh's nodes;
+   12e stencil2d against its plain version at every shape 12a-12c, 12f
+       and 12g logged (float64 to 1e-12; the refined legs' float32
+       V-cycle shapes to 1e-5), timed as device time beside cuDNN's, and four
        bitwise-equal launches at the non-square fine float64 shape and
        at the most-split float64 shape;
 13. the command line: pynama_tpu_torch.run_case.main(argv) called in
@@ -185,15 +193,17 @@ Phases, each timed; any failure exits non-zero:
        quads named "left"; the named face's nodes, and the uniform flow
        reproduced (it is the exact solution: this leg checks the CLI
        path and the named 3D faces, not CG work);
-   14d an 8x8 Gmsh cavity (3 steps) and a 3x3x3 Gmsh Taylor-Green (2
-       steps) on the card and on the CPU: vorticities within 1e-8, CG
-       lists side by side; 14a's initial RHS (its first two solves)
+   14d an 8x8 Gmsh cavity (3 steps) and a 3x3x3 Gmsh Taylor-Green (1
+       step; 2 until 12g was added) on the card and on the CPU, each
+       run's seconds: vorticities within 1e-8, CG lists side by side;
+       14a's initial RHS (its first two solves)
        again, bit for bit with the same CG iterations, then once more
        under the sync debug mode and the profiler: host syncs, kernels
        and device time per CG iteration; and the initial RHS of 14a's
-       cavity at 64x64 (at 14a's 128x128 until phase 17 was added, cut to
-       make room for it) on the card and on a problem set up with device="cpu":
-       RHS and velocities within 1e-8, CG iterations side by side;
+       cavity at 32x32 (64x64 until 12g was added, 14a's 128x128 until
+       phase 17 was, each cut to make room) on the card and on a problem
+       set up with device="cpu": RHS and velocities within 1e-8, CG
+       iterations side by side;
 15. immersed bodies on Gmsh domains (float64; the Gmsh path of phase 14
    with UnstructuredIBMCoupling for a static body and LatticeIBMCoupling
    for a moving one, plain torch: every launch count, set to 0 just
@@ -1458,17 +1468,17 @@ def problem_tensors(torch, p, skip=()):
     return found
 
 
-def ibm_refine_leg(torch, stencil, base, out):
-    """12f: 12c's configuration under kle-refine through phase_main, 3
-    steps: the slip after every step, refinement rounds and inner CG
-    iterations a step, every tensor of the problem on cuda:0, the inner
-    system float32, and the final vorticity against 12c's (``base``, the
-    same step count) within IBM_REFINE_VORT_LIMIT; plus ibm_extra's
-    checks, stencil2d launching both float64 and float32."""
-    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+def ibm_refine_leg(torch, stencil, key, tag, make_problem, check, out):
+    """12f and 12g (``tag``): a configuration under kle-refine through
+    phase_main, IBM_REFINE_STEPS steps: the slip after every step,
+    refinement rounds and inner CG iterations a step, one raw lift entry
+    a step, every tensor of the problem on cuda:0, the inner system
+    float32; plus ibm_extra's checks (stencil2d launching both float64
+    and float32) and those of ``check(p, vort)``, whose record joins the
+    leg's."""
     from pynama_tpu_torch.scripts.ibm_regression import StepSolves
 
-    key, k2, held, rows = "ibm_re40_refine", stencil.KERNEL, {}, []
+    k2, held, rows, steps = stencil.KERNEL, {}, [], IBM_REFINE_STEPS
     solves = []
 
     def on_step(p, n, t, vel):
@@ -1482,37 +1492,82 @@ def ibm_refine_leg(torch, stencil, base, out):
         res = checks(p, vort)
         devices = sorted({str(x.device) for x in problem_tensors(torch, p)})
         inner = str(p.system32.diag_K.dtype).replace("torch.", "")
-        rel = rel_diff(torch, vort, base)
         slips = [r["slip"] for r in rows]
         res.update(per_step=rows, slip_per_step=slips, tensor_devices=devices,
-                   inner_dtype=inner, vort_rel_diff_vs_12c=rel,
-                   vort_limit=IBM_REFINE_VORT_LIMIT,
+                   inner_dtype=inner,
+                   cl_raw_history=p.cl_raw_history,
                    rounds_per_solve=sum(p.ir_rounds) / len(p.ir_rounds))
         print(f"  per step (slip, rounds, inner CG, KLE solves): "
               + "; ".join(f"{r['step']}: {r['slip']:.2e}, {r['rounds']}, "
                           f"{r['inner_cg_iters']}, {r['kle_solves']}"
                           for r in rows)
               + f"; {res['rounds_per_solve']:.3f} rounds a solve; inner "
-              f"system {inner}; tensors on {devices}; vorticity vs 12c "
-              f"{rel:.3e} (limit {IBM_REFINE_VORT_LIMIT:.3e})", flush=True)
-        if len(rows) != IBM_REFINE_STEPS or not max(slips) < SLIP_LIMIT:
-            fail(f"12f: slip per step {slips} (limit {SLIP_LIMIT:g})")
+              f"system {inner}; tensors on {devices}; raw lift "
+              f"{[c[0] for c in p.cl_raw_history]}", flush=True)
+        if len(rows) != steps or not max(slips) < SLIP_LIMIT:
+            fail(f"{tag}: slip per step {slips} (limit {SLIP_LIMIT:g})")
         if not p._refine or inner != "float32" or devices != ["cuda:0"]:
-            fail(f"12f: refine {p._refine}, inner system {inner}, "
+            fail(f"{tag}: refine {p._refine}, inner system {inner}, "
                  f"tensors on {devices}")
+        if len(p.cl_raw_history) != steps:
+            fail(f"{tag}: {len(p.cl_raw_history)} raw lift entries in "
+                 f"{steps} steps")
+        res.update(check(p, vort))
+        return res
+
+    return phase_main(torch, stencil, k2, make_problem, key, out,
+                      extra=extra, steps=steps, on_step=on_step)
+
+
+def ibm_re40_refine_leg(torch, stencil, base, out):
+    """12f: 12c's configuration under kle-refine, IBM_REFINE_STEPS steps,
+    its final vorticity against 12c's (``base``, the same step count)
+    within IBM_REFINE_VORT_LIMIT."""
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+
+    def check(p, vort):
+        rel = rel_diff(torch, vort, base)
+        print(f"  vorticity vs 12c {rel:.3e} (limit "
+              f"{IBM_REFINE_VORT_LIMIT:.3e})", flush=True)
         if not rel <= IBM_REFINE_VORT_LIMIT:
             fail(f"12f: vorticity vs 12c {rel:.3e} > "
                  f"{IBM_REFINE_VORT_LIMIT:.3e}")
-        return res
+        return {"vort_rel_diff_vs_12c": rel,
+                "vort_limit": IBM_REFINE_VORT_LIMIT}
 
-    return phase_main(torch, stencil, k2, lambda: ImmersedBoundaryProblem(
-        {**ibm_re40_config(), "kle-refine": True}), key, out, extra=extra,
-        steps=IBM_REFINE_STEPS, on_step=on_step)
+    return ibm_refine_leg(
+        torch, stencil, "ibm_re40_refine", "12f",
+        lambda: ImmersedBoundaryProblem({**ibm_re40_config(),
+                                         "kle-refine": True}), check, out)
+
+
+def ibm_st_leg(torch, stencil, out):
+    """12g: the Re-100 Strouhal protocol's configuration (KickedCylinder,
+    st_config(): 96x64 under kle-refine), IBM_REFINE_STEPS steps, its
+    initial vorticity on cuda:0 in float64, in the grid layout, and
+    bitwise kick() of the mesh's nodes."""
+    from pynama_tpu_torch.scripts.ibm_regression import (KickedCylinder,
+                                                         kick, st_config)
+
+    def check(p, vort):
+        w = p.initial_vorticity()
+        want = torch.as_tensor(kick(p.mesh.coords)).reshape(p._gshape(1))
+        same = bool(torch.equal(w.cpu(), want))
+        print(f"  kick on {w.device} ({w.dtype}, {tuple(w.shape)}), "
+              f"bitwise kick() of the mesh's nodes: {same}", flush=True)
+        if str(w.device) != "cuda:0" or w.dtype != torch.float64 or \
+                not same:
+            fail(f"12g: the kick on {w.device}, {w.dtype}, "
+                 f"{tuple(w.shape)}, bitwise kick() {same}")
+        return {"kick_bitwise": same}
+
+    return ibm_refine_leg(torch, stencil, "ibm_st_refine", "12g",
+                          lambda: KickedCylinder(st_config()), check, out)
 
 
 def phase_ibm_legs(torch, stencil, phase, out):
     """Phase 12 (see the module's docstring). Returns phase_main's
-    records of 12a, 12b, 12c and 12f and 12e's rows."""
+    records of 12a, 12b, 12c, 12f and 12g and 12e's rows."""
     from collections import Counter
 
     from pynama_tpu_torch.cases.immersed import (
@@ -1548,9 +1603,14 @@ def phase_ibm_legs(torch, stencil, phase, out):
     records["ibm_re40_refine"], shapes = phase(
         "ibm_re40_refine", "[12f] 12c's geometry under kle-refine: float64 "
         f"state, float32 V-cycles, {IBM_REFINE_STEPS} steps",
-        lambda: ibm_refine_leg(torch, stencil, base, out))
+        lambda: ibm_re40_refine_leg(torch, stencil, base, out))
     logged.update(shapes)
     del base
+    records["ibm_st_refine"], shapes = phase(
+        "ibm_st_refine", "[12g] the Re-100 Strouhal configuration: the "
+        f"kicked cylinder at 96x64 under kle-refine, {IBM_REFINE_STEPS} "
+        "steps", lambda: ibm_st_leg(torch, stencil, out))
+    logged.update(shapes)
 
     def plain_compare_ibm():
         pk, pp = phase_plain_compare(
@@ -1587,7 +1647,7 @@ def phase_ibm_legs(torch, stencil, phase, out):
 
     rows = phase("ibm_kernels",
                  "[12e] stencil2d vs plain version at the IBM legs' shapes "
-                 "(12f's float32 ones too)", kernels_and_repeats)
+                 "(12f's and 12g's float32 ones too)", kernels_and_repeats)
     return records, rows
 
 
@@ -1934,7 +1994,7 @@ GMSH_CAVITY_N = 128        # 14a: quads per side, jittered by 0.15 / N
 GMSH_TG_N = 16             # 14b: hexes per side, jittered by 0.03 / N
 GMSH_CHANNEL = (12, 12, 30)  # 14c: channel3d's box, cut from 32x32x80
 GMSH_CPU_LIMIT = 1e-8      # 14d: card vs CPU vorticity / RHS, relative
-GMSH_CPU_CHECK_N = 64      # 14d: the CPU initial RHS's quads per side
+GMSH_CPU_CHECK_N = 32      # 14d: the CPU initial RHS's quads per side
 # 14b: the velocity's relative error against the exact field after 3
 # steps: the port's CPU run of the same config gave GMSH_TG_CPU_ERR
 # (gmsh_tg_cpu_error(), a few minutes; its last digits follow the host's
@@ -2272,17 +2332,21 @@ def gmsh_cpu_leg(torch, tmp, out, p14, first):
             ("cavity_8x8", lambda dev: CavityProblem(
                 gmsh_cavity_config(c_path, 8), device=dev), 3),
             ("tg3d_3x3x3", lambda dev: CustomFuncProblem(
-                gmsh_tg_config(h_path), case="taylor-green", device=dev), 2)):
+                gmsh_tg_config(h_path), case="taylor-green", device=dev), 1)):
         runs = {}
         for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
             p = make(dev).setup()
             vort, t, n = p.run(max_steps=steps)
-            runs[dev] = (vort.cpu(), t, n, p.cg_iters)
-        (vc, tc, nc, ic), (vh, th, nh, ih) = runs["cuda"], runs["cpu"]
+            runs[dev] = (vort.cpu(), t, n, p.cg_iters,
+                         time.perf_counter() - t0)
+        (vc, tc, nc, ic, sc), (vh, th, nh, ih, sh) = runs["cuda"], runs["cpu"]
         rel = rel_diff(torch, vc, vh)
         legs[name] = {"steps": [nc, nh], "t": [tc, th], "vort_rel_diff": rel,
-                      "cg_iters_card": ic, "cg_iters_cpu": ih}
-        print(f"  {name}: steps {nc}/{nh}, vorticity card vs CPU {rel:.3e} "
+                      "cg_iters_card": ic, "cg_iters_cpu": ih,
+                      "seconds_card": sc, "seconds_cpu": sh}
+        print(f"  {name}: steps {nc}/{nh}, setup and run {sc:.1f} s on the "
+              f"card, {sh:.1f} s on the CPU; vorticity card vs CPU {rel:.3e} "
               f"(limit {GMSH_CPU_LIMIT:g}); CG card {ic}", flush=True)
         print(f"  {'':{len(name)}}  CG CPU  {ih}", flush=True)
         if nc != steps or nh != steps or not rel <= GMSH_CPU_LIMIT:
@@ -2344,11 +2408,11 @@ def gmsh_cpu_leg(torch, tmp, out, p14, first):
 
 
 def gmsh_sized_cpu(torch, tmp, res):
-    """The initial RHS (its first two KLE solves, one-level Schwarz) of
+    """The initial RHS (its first two KLE solves, Schwarz-CG) of
     14a's cavity at GMSH_CPU_CHECK_N x GMSH_CPU_CHECK_N quads, on the card
     and on a problem set up from the same file with device="cpu": the
     RHS and both velocities within GMSH_CPU_LIMIT. At 14a's own size until
-    phase 17 was added; cut to make room for it."""
+    phase 17 was added and at 64 until 12g was; each cut to make room."""
     from pynama_tpu_torch.cases.cavity import CavityProblem
 
     def tup(a):
@@ -2400,7 +2464,8 @@ def phase_gmsh_legs(torch, stencil, phase, out):
               + "x".join(map(str, GMSH_CHANNEL)) + " hexes, 1 step",
               lambda: gmsh_channel_leg(torch, stencil, tmp, out))
         phase("gmsh_card_vs_cpu", "[14d] Gmsh runs on the card vs the CPU; "
-              "14a's first solves repeated; a 64x64 initial RHS on both",
+              "14a's first solves repeated; a "
+              f"{GMSH_CPU_CHECK_N}x{GMSH_CPU_CHECK_N} initial RHS on both",
               lambda: gmsh_cpu_leg(torch, tmp, out, p14, first))
 
 
@@ -3747,7 +3812,7 @@ def main():
            "11b": out["ws_scan"]["stencil_launches"]}
     ibm2 = {leg: sl12[key]["stencil_launches"] for leg, key in (
         ("12a", "ibm_static"), ("12b", "ibm_dynamic"), ("12c", "ibm_re40"),
-        ("12f", "ibm_re40_refine"))}
+        ("12f", "ibm_re40_refine"), ("12g", "ibm_st_refine"))}
     kernels = {"kernels": [
         main_path_entry(k2, rows2, sl2["stencil_launches"]
                         + sl10["stencil_launches"] + sum(ws2.values())

@@ -165,7 +165,8 @@ class ImmersedBoundaryProblem(UniformFlowProblem):
             vel = self._blk(self.zero_vel())
             t = self.t_start
             dt = self.dt0
-            # initial condition: zero vorticity, KLE solve + correction
+            # initial condition: the initial vorticity (zero unless a
+            # subclass gives one), KLE solve + correction
             Xb, Ub = self._body_state(t)
             vort, vel, _ = self._post_step(t, vort, vel, Xb, Ub)
             f1, _ = self.transport_rhs(t, vort, vel)

@@ -1,18 +1,23 @@
-"""The immersed-boundary drag regression on the card: a static cylinder at
-Re 40 and 8.3% blockage, under mixed-precision refinement (kle-refine).
+"""The immersed-boundary regressions on the card, under mixed-precision
+refinement (kle-refine): the drag of a static cylinder at Re 40 and 8.3%
+blockage (``re40``), and the shedding frequency of a kicked cylinder at
+Re 100 (``st``).
 
-    python -m pynama_tpu_torch.scripts.ibm_regression re40 [--out PATH]
+    python -m pynama_tpu_torch.scripts.ibm_regression re40|st [--out PATH]
         [--device cuda|cpu]
 
-Port of scripts/run_ibm_regression_tpu.py for its ``re40`` protocol, the
-body of tests/test_ibm_physics.py::test_static_cylinder_re40_drag with the
+Port of scripts/run_ibm_regression_tpu.py for its ``re40`` and ``st``
+protocols, the bodies of tests/test_ibm_physics.py's
+test_static_cylinder_re40_drag and test_cylinder_re100_strouhal with the
 reference's production solver path (float64 state and true float64
-residuals, float32 multigrid V-cycles): 144x96 Q2 elements of
-[-6,12]x[-6,6] (blockage D/H = 8.3%, D/h = 16), 180 adaptive steps
-checkpointed every 10, then two segments resumed from the checkpoint, each
-of 14 steps at a fixed max-dt of 0.06 and 0.03. The raw drag per step
-scales as cd_raw(dt) = cd_phys + floor/dt, so the means of each segment's
-last 8 raw coefficients and dts eliminate the floor:
+residuals, float32 multigrid V-cycles).
+
+``re40``: 144x96 Q2 elements of [-6,12]x[-6,6] (blockage D/H = 8.3%,
+D/h = 16), 180 adaptive steps checkpointed every 10, then two segments
+resumed from the checkpoint, each of 14 steps at a fixed max-dt of 0.06
+and 0.03. The raw drag per step scales as cd_raw(dt) = cd_phys +
+floor/dt, so the means of each segment's last 8 raw coefficients and dts
+eliminate the floor:
 
     cd_phys = (cd_a dt_a - cd_b dt_b) / (dt_a - dt_b)    (the same for cl)
 
@@ -20,14 +25,29 @@ The test's gates decide the exit code: t > 12 after the 180 steps, the
 segments' dts within 1e-6 of 0.06 and 0.03, 1.70 < cd_phys < 2.0 and
 |cl_phys| < 0.1. cd_phys is printed beside the reference's recorded
 1.8573 (run-artifacts/ibm_regression.json, a CPU measurement), which is
-reported, not gated. Seconds of every stage, ms per accepted step, the
-refinement rounds and inner float32 CG iterations of every accepted step
-and stencil2d's launches by dtype are printed and written as JSON to
-``--out`` (default chiprun_out/ibm_regression.json). It runs on the card
-unless ``--device cpu`` is given, and raises without one.
+reported, not gated.
 
-The other protocols of the TPU script (``big``: 4.2% blockage; ``st``:
-the Re-100 Strouhal number) are not ported and raise NotImplementedError.
+``st``: 96x64 Q2 elements of [-4,8]x[-4,4] (24,897 nodes), Re 100, a
+vortex dipole kicked into the near wake at t = 0 (KickedCylinder), run to
+t = 60 in at most 1,400 adaptive steps (max-dt 0.06, kle-rtol 1e-7), the
+forces recorded every step. The raw lift over t > 30, interpolated onto a
+uniform grid of as many points, its mean taken out, gives the spectrum
+whose largest peak above the zero bin is the shedding frequency:
+St = f_peak D / u_ref, its prominence the peak over the median amplitude
+above the zero bin (strouhal). The test's gates decide the exit code:
+t >= 60 - 1e-9, prominence > 10 and 0.15 < St < 0.19. St is printed
+beside the reference's recorded 0.1664 (run-artifacts/ibm_regression.json),
+which is reported, not gated.
+
+Seconds of every stage, ms per accepted step, the refinement rounds and
+inner float32 CG iterations of every accepted step and stencil2d's
+launches by dtype are printed and written as JSON to ``--out`` (default
+chiprun_out/ibm_regression.json for re40, chiprun_out/ibm_regression_st.json
+for st; never run-artifacts/). It runs on the card unless ``--device cpu``
+is given, and raises without one.
+
+The TPU script's third protocol (``big``: re40 at 4.2% blockage) is not
+ported and raises NotImplementedError.
 """
 
 import argparse
@@ -59,8 +79,23 @@ CL_MAX = 0.1
 # run-artifacts/ibm_regression.json "re40_blockage8.3" cd_phys (the
 # reference's CPU measurement of this protocol, without refinement)
 REF_CD_PHYS = 1.8572644338304616
+# tests/test_ibm_physics.py:159-172's configuration of the Re-100 protocol
+ST_GEOM = {"nelem": (96, 64), "lower": (-4, -4), "upper": (8, 4)}
+ST_END_TIME = 60.0
+ST_MAX_STEPS = 1400
+ST_LOG_EVERY = 100   # the steps between progress lines
+# the gates of test_cylinder_re100_strouhal: the run reaches its end time,
+# the lift is analysed over t > ST_T_MIN, and its spectral peak stands
+# PROMINENCE_MIN above the median at a Strouhal number in ST_WINDOW
+END_TOL = 1e-9
+ST_T_MIN = 30.0
+PROMINENCE_MIN = 10.0
+ST_WINDOW = (0.15, 0.19)
+# run-artifacts/ibm_regression.json "re100_strouhal" st (the reference's
+# measurement of this protocol under its refined path)
+REF_ST = 0.1663894618232804
 NOT_PORTED = ("the {} protocol is not ported (ROADMAP.md queue 1 #8); "
-              "only re40 runs")
+              "re40 and st run")
 
 
 def re40_config(max_dt=None, nelem=RE40_GEOM["nelem"],
@@ -119,17 +154,19 @@ class StepSolves:
                 "inner_cg_iters": sum(p.cg_iters[ns:])}
 
 
-def timed_run(p, **run_kw):
+def timed_run(p, log_every=0, **run_kw):
     """p.run(**run_kw) with a record of every accepted step: its ms (the
     first includes the initial condition of a fresh run), KLE solves,
     refinement rounds and inner float32 CG iterations, and stencil2d's
-    launches by dtype over the run."""
+    launches by dtype over the run; a line every ``log_every`` steps
+    (none if 0) says how far the run has come."""
     cuda = p.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     stencil.KERNEL.reset_counts()
     rows, solves = [], StepSolves(p)
     sync()
-    last = [time.perf_counter()]
+    t0 = time.perf_counter()
+    last = [t0]
 
     def callback(n, t, dt, vort, vel):
         sync()
@@ -137,8 +174,10 @@ def timed_run(p, **run_kw):
         rows.append({"step": n, "t": t, "ms": 1e3 * (now - last[0]),
                      **solves()})
         last[0] = now
+        if log_every and n % log_every == 0:
+            print(f"  step {n}: t {t:.6f}, dt proposed {dt:.6g}, "
+                  f"{now - t0:.1f} s", flush=True)
 
-    t0 = time.perf_counter()
     _, t, n = p.run(callback=callback, **run_kw)
     sync()
     seconds = time.perf_counter() - t0
@@ -152,10 +191,10 @@ def timed_run(p, **run_kw):
             "launches_by_dtype": launches_by_dtype()}
 
 
-def setup_problem(cfg, device):
+def setup_problem(cfg, device, cls=ImmersedBoundaryProblem):
     """(the set-up problem, its setup seconds)."""
     t0 = time.perf_counter()
-    p = ImmersedBoundaryProblem(cfg, device=device).setup()
+    p = cls(cfg, device=device).setup()
     if p.device.type == "cuda":
         torch.cuda.synchronize()
     return p, time.perf_counter() - t0
@@ -263,15 +302,172 @@ def report(res):
           f"{res['cl_phys']:.3e}", flush=True)
 
 
+def st_config(nelem=ST_GEOM["nelem"], lower=ST_GEOM["lower"],
+              upper=ST_GEOM["upper"], end_time=ST_END_TIME,
+              max_steps=ST_MAX_STEPS):
+    """tests/test_ibm_physics.py:159-172's configuration with kle-refine
+    on (the TPU script's PYNAMA_IBM_REFINE=1): a static cylinder of radius
+    0.5 at the origin, Re 100 (rho 1, mu 0.01, u_ref 1), adaptive steps
+    from dt0 0.01 up to max-dt 0.06, kle-rtol 1e-7."""
+    return {
+        "kle-refine": True,
+        "name": "cyl-re100-strouhal",
+        "material-properties": {"rho": 1.0, "mu": 0.01},
+        "domain": {"ngl": 3, "box-mesh": {"nelem": list(nelem),
+                                          "lower": list(lower),
+                                          "upper": list(upper)}},
+        "boundary-conditions": {"constant": {"re": 100, "direction": 0,
+                                             "longRef": "1"}},
+        "bodies": [{"type": "circle", "vel": "static", "radius": 0.5,
+                    "center": [0, 0]}],
+        "time-solver": {"start-time": 0, "end-time": end_time,
+                        "max-steps": max_steps, "dt0": 0.01,
+                        "max-dt": 0.06},
+        "kle-rtol": 1e-7,
+    }
+
+
+def kick(coords):
+    """The vortex dipole of tests/test_ibm_physics.py:145-157 at (n, 2)
+    node coordinates, in numpy float64: 3 blob(1.2, 0.45, 0.35) -
+    3 blob(1.6, -0.4, 0.35), blob a Gaussian of the distance to its
+    centre over its width."""
+    c = np.asarray(coords)
+    x, y = c[:, 0], c[:, 1]
+
+    def blob(x0, y0, s):
+        return np.exp(-(((x - x0) ** 2 + (y - y0) ** 2) / s**2))
+
+    return 3.0 * blob(1.2, 0.45, 0.35) - 3.0 * blob(1.6, -0.4, 0.35)
+
+
+class KickedCylinder(ImmersedBoundaryProblem):
+    """The static cylinder started from kick()'s dipole in its near wake
+    (tests/test_ibm_physics.py:145-157), which seeds the instability so
+    that the shedding frequency locks within t <= 60."""
+
+    def initial_vorticity(self):
+        w = kick(self.mesh.coords)
+        return self._tensor(w.reshape(self._gshape(self.dim_w)))
+
+
+def strouhal(t_history, cl_raw, u_ref, t_min=ST_T_MIN):
+    """(St, prominence) of a lift history (one coefficient per entry of
+    t_history), as test_cylinder_re100_strouhal computes them: the lift
+    over t > t_min interpolated onto a uniform grid of as many points, its
+    mean taken out; the largest amplitude of its real FFT above the zero
+    bin gives f_peak, St = f_peak D / u_ref (D = 1), and the prominence is
+    that amplitude over the median amplitude above the zero bin."""
+    ts = np.asarray(t_history)
+    cls = np.asarray(cl_raw)
+    sel = ts > t_min
+    tu = np.linspace(ts[sel][0], ts[sel][-1], sel.sum())
+    yu = np.interp(tu, ts[sel], cls[sel])
+    yu -= yu.mean()
+    freqs = np.fft.rfftfreq(len(tu), d=tu[1] - tu[0])
+    amp = np.abs(np.fft.rfft(yu))
+    i = int(np.argmax(amp[1:]) + 1)
+    st = float(freqs[i]) * 1.0 / u_ref
+    prominence = float(amp[i] / np.median(amp[1:]))
+    return st, prominence
+
+
+def st_protocol(device):
+    """The Re-100 Strouhal protocol at the module's ST_ constants, read
+    when called: KickedCylinder at ST_GEOM (nelem, lower, upper) set up
+    and run to ST_END_TIME in at most ST_MAX_STEPS steps with the forces
+    recorded every step and a progress line every ST_LOG_EVERY, then
+    strouhal() of the raw lift over t > ST_T_MIN (None where fewer than
+    two entries lie past it). Returns the record of the run and the
+    results; the gates are st_gate_failures'."""
+    device = resolve_device(device)
+    geom, end_time, max_steps, t_min = (ST_GEOM, ST_END_TIME, ST_MAX_STEPS,
+                                        ST_T_MIN)
+    p, setup_s = setup_problem(st_config(end_time=end_time,
+                                         max_steps=max_steps, **geom),
+                               device, cls=KickedCylinder)
+    res = timed_run(p, log_every=ST_LOG_EVERY, save_forces_every=1)
+    res["run_s"] = res.pop("seconds")
+    steps = res["step_rows"]
+    cls = [c[0] for c in p.cl_raw_history]
+    st = prominence = None
+    if sum(t > t_min for t in p.t_history) >= 2:
+        st, prominence = strouhal(p.t_history, cls, p.u_ref, t_min)
+    res.update(
+        geom={k: list(v) for k, v in geom.items()}, device=str(device),
+        setup_s=setup_s, u_ref=p.u_ref, re=p.re, refine=p._refine,
+        inner_dtype=str(p.system32.diag_K.dtype),
+        velocity_dofs=p.mesh.n_nodes * p.dim,
+        lagrange_points=p.body.n_nodes, end_time=end_time,
+        max_steps=max_steps, t_min=t_min,
+        kle_solves_per_step=sum(r["kle_solves"] for r in steps[1:])
+        / max(len(steps) - 1, 1),
+        t_history=list(p.t_history), cl_raw_history=cls,
+        dt_history=list(p.dt_history), st=st, prominence=prominence,
+        ref_st=REF_ST,
+        st_minus_ref=None if st is None else st - REF_ST)
+    return res
+
+
+def st_gate_failures(res):
+    """The gates of test_cylinder_re100_strouhal that ``res`` (an
+    st_protocol record) fails, as messages."""
+    bad = []
+    if not res["t"] >= res["end_time"] - END_TOL:
+        bad.append(f"t {res['t']:.6g} after {res['steps']} steps is short "
+                   f"of {res['end_time']:g}")
+    if not res["steps"] <= res["max_steps"]:
+        bad.append(f"{res['steps']} steps, over {res['max_steps']}")
+    if res["st"] is None:
+        bad.append(f"fewer than two lift entries past t = {res['t_min']:g}")
+        return bad
+    if not res["prominence"] > PROMINENCE_MIN:
+        bad.append(f"prominence {res['prominence']:.3f} <= "
+                   f"{PROMINENCE_MIN:g}")
+    lo, hi = ST_WINDOW
+    if not lo < res["st"] < hi:
+        bad.append(f"St {res['st']:.6f} outside ({lo:g}, {hi:g})")
+    return bad
+
+
+def st_report(res):
+    """Print an st_protocol record's run and results."""
+    rows = res["step_rows"]
+    print(f"refine {res['refine']} (inner {res['inner_dtype']}), "
+          f"{res['velocity_dofs']} velocity dofs, "
+          f"{res['lagrange_points']} Lagrange points; setup "
+          f"{res['setup_s']:.2f} s", flush=True)
+    print(f"[run] {res['steps']} steps to t = {res['t']:.6f} in "
+          f"{res['run_s']:.2f} s, {res['ms_per_step']:.1f} ms per accepted "
+          f"step after the first (step 1 {rows[0]['ms']:.1f} ms), "
+          f"{res['kle_solves_per_step']:.2f} KLE solves a step, "
+          f"{res['rounds_per_solve']:.3f} rounds and "
+          f"{res['inner_cg_iters_per_solve']:.2f} inner CG iterations a "
+          f"solve, {len(res['flux_cg_iters'])} flux solves of "
+          f"{np.mean(res['flux_cg_iters']):.2f} CG iterations; stencil2d "
+          f"launches {res['launches_by_dtype']}", flush=True)
+    if res["st"] is None:
+        print(f"St: fewer than two lift entries past t = {res['t_min']:g}",
+              flush=True)
+        return
+    print(f"St {res['st']:.6f} (reference {REF_ST:.4f}, difference "
+          f"{res['st_minus_ref']:+.6f}), prominence {res['prominence']:.2f}",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("protocol", choices=("re40", "big", "st"))
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "ibm_regression.json"))
+    ap.add_argument("--out", help="the JSON record (default "
+                    "chiprun_out/ibm_regression.json for re40, "
+                    "chiprun_out/ibm_regression_st.json for st)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.protocol != "re40":
+    if args.protocol == "big":
         raise NotImplementedError(NOT_PORTED.format(args.protocol))
+    out = args.out or os.path.join("chiprun_out", {
+        "re40": "ibm_regression.json",
+        "st": "ibm_regression_st.json"}[args.protocol])
     device = resolve_device(args.device)
     t0 = time.perf_counter()
     card = None
@@ -283,16 +479,20 @@ def main(argv=None):
         stencil.build_kernels([stencil.KERNEL])
         print(f"stencil2d built in {stencil.KERNEL.build_seconds:.1f} s",
               flush=True)
-    with tempfile.TemporaryDirectory() as d:
-        res = drag_protocol(RE40_GEOM, device, d, steps=STEPS,
-                            seg_steps=SEG_STEPS, ckpt_every=CKPT_EVERY)
+    if args.protocol == "st":
+        res, gates, rep = st_protocol(device), st_gate_failures, st_report
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            res = drag_protocol(RE40_GEOM, device, d, steps=STEPS,
+                                seg_steps=SEG_STEPS, ckpt_every=CKPT_EVERY)
+        gates, rep = gate_failures, report
     res.update(card=card, seconds=time.perf_counter() - t0,
-               gate_failures=gate_failures(res))
-    report(res)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+               gate_failures=gates(res))
+    rep(res)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(res, f, indent=1)
-    print(f"wrote {args.out}; {res['seconds']:.1f} s in all", flush=True)
+    print(f"wrote {out}; {res['seconds']:.1f} s in all", flush=True)
     for msg in res["gate_failures"]:
         print(f"gate failed: {msg}", file=sys.stderr, flush=True)
     return 1 if res["gate_failures"] else 0

@@ -138,7 +138,7 @@ def test_gates():
         assert len(R.gate_failures(bad)) == 1
 
 
-@pytest.mark.parametrize("protocol", ["big", "st"])
+@pytest.mark.parametrize("protocol", ["big"])
 def test_other_protocols_raise(protocol):
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
         R.main([protocol, "--device", "cpu"])
