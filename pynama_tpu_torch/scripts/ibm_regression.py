@@ -1,16 +1,19 @@
 """The immersed-boundary regressions on the card, under mixed-precision
 refinement (kle-refine): the drag of a static cylinder at Re 40 and 8.3%
-blockage (``re40``), and the shedding frequency of a kicked cylinder at
-Re 100 (``st``).
+blockage (``re40``) and at 4.2% (``big``), and the shedding frequency of
+a kicked cylinder at Re 100 (``st``).
 
-    python -m pynama_tpu_torch.scripts.ibm_regression re40|st [--out PATH]
-        [--device cuda|cpu]
+    python -m pynama_tpu_torch.scripts.ibm_regression [re40] [big] [st]
+        [--out PATH] [--device cuda|cpu]
 
-Port of scripts/run_ibm_regression_tpu.py for its ``re40`` and ``st``
-protocols, the bodies of tests/test_ibm_physics.py's
-test_static_cylinder_re40_drag and test_cylinder_re100_strouhal with the
-reference's production solver path (float64 state and true float64
-residuals, float32 multigrid V-cycles).
+Port of scripts/run_ibm_regression_tpu.py: the bodies of
+tests/test_ibm_physics.py's test_static_cylinder_re40_drag,
+test_static_cylinder_re40_drag_big_domain and
+test_cylinder_re100_strouhal with the reference's production solver path
+(float64 state and true float64 residuals, float32 multigrid V-cycles).
+The protocols named run in the TPU script's order, re40, big, st; with
+none named all three run. The run stops at the first protocol whose
+gates fail and exits 1.
 
 ``re40``: 144x96 Q2 elements of [-6,12]x[-6,6] (blockage D/H = 8.3%,
 D/h = 16), 180 adaptive steps checkpointed every 10, then two segments
@@ -24,8 +27,17 @@ eliminate the floor:
 The test's gates decide the exit code: t > 12 after the 180 steps, the
 segments' dts within 1e-6 of 0.06 and 0.03, 1.70 < cd_phys < 2.0 and
 |cl_phys| < 0.1. cd_phys is printed beside the reference's recorded
-1.8573 (run-artifacts/ibm_regression.json, a CPU measurement), which is
-reported, not gated.
+1.8573 (run-artifacts/ibm_regression.json "re40_blockage8.3", a CPU
+measurement), which is reported, not gated.
+
+``big``: re40's protocol at the same element size in a box twice as
+tall, 144x192 Q2 elements of [-6,12]x[-12,12] (blockage 4.2%). Its gates
+are re40's with the big-domain test's drag windows: cd_phys < 1.85
+(strictly below the 8.3%-blockage value) and 1.45 < cd_phys < 1.90.
+cd_phys is printed beside the reference's recorded 1.7658
+("re40_blockage4.2", a TPU measurement under the refined path) and, as
+the blockage drop, beside the 8.3% value; both are reported, not
+gated.
 
 ``st``: 96x64 Q2 elements of [-4,8]x[-4,4] (24,897 nodes), Re 100, a
 vortex dipole kicked into the near wake at t = 0 (KickedCylinder), run to
@@ -41,15 +53,13 @@ which is reported, not gated.
 
 Seconds of every stage, ms per accepted step, the refinement rounds and
 inner float32 CG iterations of every accepted step and stencil2d's
-launches by dtype are printed and written as JSON to ``--out`` (default
-chiprun_out/ibm_regression.json for re40, chiprun_out/ibm_regression_st.json
-for st; never run-artifacts/). It runs on the card unless ``--device cpu``
-is given, and raises without one.
-
-The TPU script's third protocol (``big``: re40 at 4.2% blockage) is not
-ported and raises NotImplementedError.
+launches by dtype are printed and written as JSON, each protocol's to
+its own default under chiprun_out/ (ibm_regression.json for re40,
+ibm_regression_big.json for big, ibm_regression_st.json for st; never
+run-artifacts/), or to ``--out`` where one protocol is named. It runs on
+the card unless ``--device cpu`` is given, and raises without one;
+stencil2d is built once a call.
 """
-
 import argparse
 import json
 import os
@@ -64,8 +74,10 @@ from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
 from pynama_tpu_torch.device import resolve_device
 from pynama_tpu_torch.ops import stencil
 
-# tests/test_ibm_physics.py's geometry of the 8.3%-blockage protocol
+# tests/test_ibm_physics.py's geometries of the 8.3%- and 4.2%-blockage
+# protocols: the same element size, the second box twice as tall
 RE40_GEOM = {"nelem": (144, 96), "lower": (-6, -6), "upper": (12, 6)}
+BIG_GEOM = {"nelem": (144, 192), "lower": (-6, -12), "upper": (12, 12)}
 STEPS = 180           # the steady run, past the start-up transient
 CKPT_EVERY = 10
 SEG_STEPS = 14        # each fixed-dt segment resumed from the checkpoint
@@ -79,6 +91,20 @@ CL_MAX = 0.1
 # run-artifacts/ibm_regression.json "re40_blockage8.3" cd_phys (the
 # reference's CPU measurement of this protocol, without refinement)
 REF_CD_PHYS = 1.8572644338304616
+# the drag gates of test_static_cylinder_re40_drag_big_domain: below the
+# 8.3%-blockage value, and a window
+BIG_CD_BELOW = 1.85
+BIG_CD_WINDOW = (1.45, 1.90)
+# run-artifacts/ibm_regression.json "re40_blockage4.2" cd_phys (the
+# reference's measurement of this protocol under its refined path, on
+# the TPU)
+BIG_REF_CD_PHYS = 1.7658329218670357
+# each drag protocol by the reference's record key, which blockage_tag()
+# reads off the geometry and the checkpoint is named after: the recorded
+# cd_phys, and the reference test's cd window and strict upper bound
+RE40_TAG, BIG_TAG = "re40_blockage8.3", "re40_blockage4.2"
+DRAG = {RE40_TAG: (REF_CD_PHYS, CD_WINDOW, None),
+        BIG_TAG: (BIG_REF_CD_PHYS, BIG_CD_WINDOW, BIG_CD_BELOW)}
 # tests/test_ibm_physics.py:159-172's configuration of the Re-100 protocol
 ST_GEOM = {"nelem": (96, 64), "lower": (-4, -4), "upper": (8, 4)}
 ST_END_TIME = 60.0
@@ -94,8 +120,12 @@ ST_WINDOW = (0.15, 0.19)
 # run-artifacts/ibm_regression.json "re100_strouhal" st (the reference's
 # measurement of this protocol under its refined path)
 REF_ST = 0.1663894618232804
-NOT_PORTED = ("the {} protocol is not ported (ROADMAP.md queue 1 #8); "
-              "re40 and st run")
+# each protocol's record under chiprun_out/, in the order of
+# scripts/run_ibm_regression_tpu.py
+DEFAULT_OUT = {"re40": "ibm_regression.json",
+               "big": "ibm_regression_big.json",
+               "st": "ibm_regression_st.json"}
+PROTOCOLS = tuple(DEFAULT_OUT)
 
 
 def re40_config(max_dt=None, nelem=RE40_GEOM["nelem"],
@@ -200,21 +230,33 @@ def setup_problem(cfg, device, cls=ImmersedBoundaryProblem):
     return p, time.perf_counter() - t0
 
 
+def blockage_tag(geom):
+    """The reference's record key of the drag protocol at ``geom``: its
+    blockage D/H in percent, D = 1 the cylinder's diameter and H the
+    box's height (so a cut of the element counts keeps the key)."""
+    height = geom["upper"][1] - geom["lower"][1]
+    return f"re40_blockage{100.0 / height:.1f}"
+
+
 def drag_protocol(geom, device, ckpt_dir, steps=STEPS, seg_steps=SEG_STEPS,
                   ckpt_every=CKPT_EVERY):
     """The Re-40 drag protocol at ``geom`` (nelem, lower, upper): a run
     of ``steps`` steps checkpointed every ``ckpt_every`` (into
-    ``ckpt_dir``), then one segment per dt of SEG_DTS resumed from the
-    last checkpoint for ``seg_steps`` steps, and the Richardson
-    elimination of the means of each segment's last MEAN_LAST raw
-    coefficients and dts. Returns the record of every stage and the
-    results; the gates are gate_failures'."""
+    ``ckpt_dir``, as cyl_ck_{tag}.npz with blockage_tag's key), then one
+    segment per dt of SEG_DTS resumed from the last checkpoint for
+    ``seg_steps`` steps, and the Richardson elimination of the means of
+    each segment's last MEAN_LAST raw coefficients and dts. cd_phys is
+    reported beside the tag's recorded value in DRAG, and beside the
+    8.3%-blockage one as the blockage drop. Returns the record of every
+    stage and the results; the gates are gate_failures'."""
     if steps % ckpt_every:
         raise ValueError(f"steps ({steps}) must be a multiple of "
                          f"ckpt_every ({ckpt_every}): the segments resume "
                          "from the last step")
+    tag = blockage_tag(geom)
+    ref = DRAG[tag][0]
     device = resolve_device(device)
-    ck = os.path.join(ckpt_dir, "cyl_ck_re40.npz")
+    ck = os.path.join(ckpt_dir, f"cyl_ck_{tag}.npz")
     p, setup_s = setup_problem(re40_config(**geom), device)
     main = timed_run(p, max_steps=steps, checkpoint_path=ck,
                      checkpoint_every=ckpt_every)
@@ -242,17 +284,22 @@ def drag_protocol(geom, device, ckpt_dir, steps=STEPS, seg_steps=SEG_STEPS,
                          b["cd_raw_mean"], b["dt_mean"])
     cl_phys = richardson(a["cl_raw_mean"], a["dt_mean"],
                          b["cl_raw_mean"], b["dt_mean"])
-    return {"geom": {k: list(v) for k, v in geom.items()},
-            "device": str(device), "main": main, "segments": segments,
+    return {"tag": tag, "geom": {k: list(v) for k, v in geom.items()},
+            "device": str(device), "checkpoint": os.path.basename(ck),
+            "main": main, "segments": segments,
             "main_t_history": p.t_history,
             "cd_phys": cd_phys, "cl_phys": cl_phys,
-            "ref_cd_phys": REF_CD_PHYS,
-            "cd_phys_minus_ref": cd_phys - REF_CD_PHYS}
+            "ref_cd_phys": ref, "cd_phys_minus_ref": cd_phys - ref,
+            "ref_cd_phys_blockage83": REF_CD_PHYS,
+            "blockage_drop": cd_phys - REF_CD_PHYS,
+            "ref_blockage_drop": ref - REF_CD_PHYS}
 
 
-def gate_failures(res):
-    """The gates of test_static_cylinder_re40_drag that ``res`` (a
-    drag_protocol record) fails, as messages."""
+def gate_failures(res, cd_window=CD_WINDOW, cd_below=None):
+    """The gates that ``res`` (a drag_protocol record) fails, as
+    messages: test_static_cylinder_re40_drag's by default, and with
+    DRAG's windows of BIG_TAG (cd_phys strictly below BIG_CD_BELOW)
+    test_static_cylinder_re40_drag_big_domain's."""
     bad = []
     main, (a, b) = res["main"], res["segments"]
     if not (abs(main["u_ref"] - 1.0) < 1e-12 and abs(main["re"] - 40) < 1e-9):
@@ -264,7 +311,10 @@ def gate_failures(res):
         if not abs(seg["dt_mean"] - seg["max_dt"]) < DT_TOL:
             bad.append(f"segment dt {seg['dt_mean']!r} is not "
                        f"{seg['max_dt']:g}")
-    lo, hi = CD_WINDOW
+    if cd_below is not None and not res["cd_phys"] < cd_below:
+        bad.append(f"cd_phys {res['cd_phys']:.6f} is not below "
+                   f"{cd_below:g}")
+    lo, hi = cd_window
     if not lo < res["cd_phys"] < hi:
         bad.append(f"cd_phys {res['cd_phys']:.6f} outside ({lo:g}, {hi:g})")
     if not abs(res["cl_phys"]) < CL_MAX:
@@ -297,9 +347,12 @@ def report(res):
         print(f"segment dt {s['max_dt']:g}: mean of the last {MEAN_LAST}: "
               f"cd_raw {s['cd_raw_mean']:.6f}, cl_raw {s['cl_raw_mean']:.3e},"
               f" dt {s['dt_mean']!r}", flush=True)
-    print(f"cd_phys {res['cd_phys']:.6f} (reference {REF_CD_PHYS:.4f}, "
-          f"difference {res['cd_phys_minus_ref']:+.6f}), cl_phys "
+    print(f"cd_phys {res['cd_phys']:.6f} (reference {res['ref_cd_phys']:.4f}"
+          f", difference {res['cd_phys_minus_ref']:+.6f}), cl_phys "
           f"{res['cl_phys']:.3e}", flush=True)
+    print(f"blockage drop from the 8.3% value {REF_CD_PHYS:.4f}: "
+          f"{res['blockage_drop']:+.6f} (reference "
+          f"{res['ref_blockage_drop']:+.6f})", flush=True)
 
 
 def st_config(nelem=ST_GEOM["nelem"], lower=ST_GEOM["lower"],
@@ -455,19 +508,34 @@ def st_report(res):
           flush=True)
 
 
+def run_protocol(name, device):
+    """(record, gate failures, report) of one protocol at the module's
+    constants, read when called."""
+    if name == "st":
+        res = st_protocol(device)
+        return res, st_gate_failures(res), st_report
+    geom = RE40_GEOM if name == "re40" else BIG_GEOM
+    with tempfile.TemporaryDirectory() as d:
+        res = drag_protocol(geom, device, d, steps=STEPS, seg_steps=SEG_STEPS,
+                            ckpt_every=CKPT_EVERY)
+    _, cd_window, cd_below = DRAG[res["tag"]]
+    return res, gate_failures(res, cd_window, cd_below), report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("protocol", choices=("re40", "big", "st"))
-    ap.add_argument("--out", help="the JSON record (default "
-                    "chiprun_out/ibm_regression.json for re40, "
+    ap.add_argument("protocols", nargs="*", choices=PROTOCOLS,
+                    help="run in the order re40, big, st (default: all)")
+    ap.add_argument("--out", help="the JSON record, where one protocol is "
+                    "named (default chiprun_out/ibm_regression.json for "
+                    "re40, chiprun_out/ibm_regression_big.json for big, "
                     "chiprun_out/ibm_regression_st.json for st)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.protocol == "big":
-        raise NotImplementedError(NOT_PORTED.format(args.protocol))
-    out = args.out or os.path.join("chiprun_out", {
-        "re40": "ibm_regression.json",
-        "st": "ibm_regression_st.json"}[args.protocol])
+    names = [n for n in PROTOCOLS if n in args.protocols] or list(PROTOCOLS)
+    if args.out and len(names) > 1:
+        ap.error(f"--out takes one protocol; {' '.join(names)} write to "
+                 "their defaults")
     device = resolve_device(args.device)
     t0 = time.perf_counter()
     card = None
@@ -479,23 +547,25 @@ def main(argv=None):
         stencil.build_kernels([stencil.KERNEL])
         print(f"stencil2d built in {stencil.KERNEL.build_seconds:.1f} s",
               flush=True)
-    if args.protocol == "st":
-        res, gates, rep = st_protocol(device), st_gate_failures, st_report
-    else:
-        with tempfile.TemporaryDirectory() as d:
-            res = drag_protocol(RE40_GEOM, device, d, steps=STEPS,
-                                seg_steps=SEG_STEPS, ckpt_every=CKPT_EVERY)
-        gates, rep = gate_failures, report
-    res.update(card=card, seconds=time.perf_counter() - t0,
-               gate_failures=gates(res))
-    rep(res)
-    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    with open(out, "w") as f:
-        json.dump(res, f, indent=1)
-    print(f"wrote {out}; {res['seconds']:.1f} s in all", flush=True)
-    for msg in res["gate_failures"]:
-        print(f"gate failed: {msg}", file=sys.stderr, flush=True)
-    return 1 if res["gate_failures"] else 0
+    for name in names:
+        if len(names) > 1:
+            print(f"[{name}] start", flush=True)
+        res, gates, rep = run_protocol(name, device)
+        # seconds since the last protocol ended (the first: the build too)
+        res.update(card=card, seconds=time.perf_counter() - t0,
+                   gate_failures=gates)
+        rep(res)
+        out = args.out or os.path.join("chiprun_out", DEFAULT_OUT[name])
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+        print(f"wrote {out}; {res['seconds']:.1f} s in all", flush=True)
+        for msg in gates:
+            print(f"gate failed: {msg}", file=sys.stderr, flush=True)
+        if gates:
+            return 1
+        t0 = time.perf_counter()
+    return 0
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ the warm-start extrapolation (kle-ws-extrapolate) through the kernels
 against the plain version, its scan attempt against its stepper, and
 its history on the card; the immersed-boundary path through the kernels
 against the plain version, and stencil2d's float64 instance at its
-non-square and 8-channel shapes; a single-mask resume bit for bit, and
-kle-solver: gmres against the CPU; the breakdown kernel of both designs
+non-square and 8-channel shapes; stencil2d against its plain version at
+every shape the 4.2%-blockage drag protocol's tall box logs in its setup
+and one step; a single-mask resume bit for bit, and kle-solver: gmres
+against the CPU; the breakdown kernel of both designs
 in every mode against its plain version and under a CUDA graph, its
 full/highest tile-rows-8 launch against stencil2d bit for bit, its
 instance table and bitwise TF32 repeats; a Gmsh cavity
@@ -594,6 +596,42 @@ def test_ibm_kernels_match_plain(cuda, monkeypatch):
     assert err <= 1e-8, err
     a, b = pk.cd_history[-1][0], pp.cd_history[-1][0]
     assert abs(a - b) <= 1e-6 * abs(b), (a, b)
+
+
+def test_kernel2d_matches_plain_at_big_protocol_shapes(cuda):
+    """The 4.2%-blockage drag protocol's configuration (144x192 elements,
+    more rows than columns, under kle-refine) set up on the card and run
+    one step, then stencil2d against its plain version at every (shape,
+    dtype) the setup (the patch smoothers' eigenvalue estimates) and the
+    step logged, on chip_smoke.checked_inputs' seeded inputs: float32
+    within 1e-5 and float64 within 1e-12 relative (chip_smoke.TOL, phase
+    12e's).
+    chip_smoke.phase_logged_kernels makes the comparison and times each
+    shape (device, plain, bound, cuDNN); run with -s to see its rows."""
+    import chip_smoke
+    from pynama_tpu_torch.cases.immersed import ImmersedBoundaryProblem
+    from pynama_tpu_torch.scripts import ibm_regression as R
+
+    stencil.KERNEL.reset_counts()
+    p = ImmersedBoundaryProblem(R.re40_config(**R.BIG_GEOM)).setup()
+    vort, _, n = p.run(max_steps=1)
+    torch.cuda.synchronize()
+    assert n == 1 and vort.device.type == "cuda" and torch.isfinite(vort).all()
+    logged, launches = dict(stencil.KERNEL.shapes), stencil.KERNEL.launches
+    assert {name for _, _, name in logged} == {"float32", "float64"}
+    out = {}
+    rows = chip_smoke.phase_logged_kernels(torch, stencil, stencil.KERNEL,
+                                           logged, launches, "big", out)
+    assert {(tuple(r["x"]), tuple(r["W"]), r["dtype"]) for r in rows} == \
+        set(logged)
+    for r in rows:
+        assert r["max_rel_err"] <= chip_smoke.TOL[r["dtype"]], r
+    # the fine level's 128-channel blocks: more rows than columns, as the
+    # grid has
+    fine = max((r for r in rows
+                if r["dtype"] == "float32" and r["x"][2] == 128),
+               key=lambda r: r["x"][0] * r["x"][1])
+    assert fine["x"][0] > fine["x"][1], fine["x"]
 
 
 def taylor_green8_config():
